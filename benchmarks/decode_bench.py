@@ -2,16 +2,14 @@
 config).
 
 Usage: python benchmarks/decode_bench.py [--batch 64] [--seq 4096]
-Measured on TPU v5e (B=64, S=4096, Llama-3-8B attention shapes), 256-step
-chained timing: int8 cache ~0.87 ms/step = ~73k tok/s (~700 GB/s, near the
-HBM roof) vs bf16 ~1.37 ms (int8 1.6-1.8x); packed int4 ~1.17 ms (slower —
-a capacity feature, half the residency).
+(on a GPU; timing is the host clock around block_until_ready).
 """
 
 import argparse
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +19,7 @@ from quantumattention_tpu.ops.quant import (
     dynamically_quantize_int4,
     dynamically_quantize_int8,
 )
-from quantumattention_tpu.utils.profiling import chain_bench
+from quantumattention_tpu.utils.profiling import bench
 
 
 def main():
@@ -45,10 +43,7 @@ def main():
     lengths = jnp.full((B,), S, jnp.int32)
     hbm = B * Hkv * S * D * 2 + B * Hkv * S * 4 * 2  # int8 k+v + scales
 
-    # Chained timing: 256 steps per jitted scan amortizes the fixed ~33 ms
-    # dispatch+fetch roundtrip (see bench.py; do_bench would bury the
-    # ~0.8 ms kernel under it).
-    t8 = chain_bench(
+    t8 = bench(
         lambda q, k, v, ks, vs, l: decode_attention(
             q, k, v, l, k_scale=ks, v_scale=vs
         ),
@@ -61,7 +56,7 @@ def main():
     )
 
     kb, vb = kc.astype(jnp.bfloat16), vc.astype(jnp.bfloat16)
-    tb = chain_bench(
+    tb = bench(
         lambda q, k, v, l: decode_attention(q, k, v, l),
         (q, kb, vb, lengths),
         iters=256,
@@ -73,7 +68,7 @@ def main():
 
     k4, ks4 = dynamically_quantize_int4(kc, reduction_dim=-1)
     v4, vs4 = dynamically_quantize_int4(vc, reduction_dim=-1)
-    t4 = chain_bench(
+    t4 = bench(
         lambda q, k, v, ks, vs, l: decode_attention(
             q, k, v, l, k_scale=ks, v_scale=vs
         ),

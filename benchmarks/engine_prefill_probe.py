@@ -6,20 +6,23 @@ this probe times each phase of the whole-batch prefill path to find the
 missing second: forward dispatch, the one-jit 32-layer cache append, the
 first-token argmax fetch, and the full engine step.
 
-Usage: python benchmarks/engine_prefill_probe.py   (TPU; ONE process)
+Usage: python benchmarks/engine_prefill_probe.py   (on a GPU; one process)
 """
 
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/quantumattention_jax_cache")
+from quantumattention_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from quantumattention_tpu.models import llama, quantized

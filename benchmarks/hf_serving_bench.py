@@ -9,21 +9,24 @@ tokens, burst 64 — the benchmarks/model_grid.py protocol).  Reports load
 time, device-memory footprint, and decode/prefill throughput as JSON
 lines.
 
-Usage: python benchmarks/hf_serving_bench.py [--ckpt /tmp/llama3_8b_synth]
-       (TPU; ONE process only)
+Usage: python benchmarks/hf_serving_bench.py [--ckpt _checkpoints/llama3_8b_synth]
+       (on a GPU; one process)
 """
 
 import argparse
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/quantumattention_jax_cache")
+from quantumattention_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
@@ -37,7 +40,7 @@ def device_mem_gib():
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", default="/tmp/llama3_8b_synth")
+    ap.add_argument("--ckpt", default="_checkpoints/llama3_8b_synth")
     ap.add_argument("--slots", type=int, default=64)
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--prompt", type=int, default=128)

@@ -12,18 +12,21 @@ frontier and prints the HBM math for the model-level story:
     64 slots int8 = 17.2 GB  (does NOT fit beside any weights on 16 GB)
     64 slots int4 =  8.6 GB  (fits beside a 4.3 GB int4-weight tree)
 
-Usage: python benchmarks/int4_operating_point.py  (TPU; ONE process only)
+Usage: python benchmarks/int4_operating_point.py  (on a GPU; one process)
 """
 
 import json
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/quantumattention_jax_cache")
+from quantumattention_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from quantumattention_tpu.ops.decode import decode_attention
@@ -31,7 +34,7 @@ from quantumattention_tpu.ops.quant import (
     dynamically_quantize_int4,
     dynamically_quantize_int8,
 )
-from quantumattention_tpu.utils.profiling import chain_bench
+from quantumattention_tpu.utils.profiling import bench
 
 Hq, Hkv, D, S = 32, 8, 128, 4096
 
@@ -48,7 +51,7 @@ def measure(B, kind):
     vc, vs = qz(vraw)
     del kraw, vraw
     lens = jnp.full((B,), S, jnp.int32)
-    t = chain_bench(
+    t = bench(
         lambda q, k, v, ks, vs, l: decode_attention(
             q, k, v, l, k_scale=ks, v_scale=vs
         ),

@@ -1,26 +1,26 @@
 """Long-context causal prefill throughput (BASELINE config 3).
 
 Usage: python benchmarks/longcontext_bench.py [--seq 131072]
-Measured on TPU v5e: 109 TFLOP/s at S=131072 (B=1, H=8, D=128, causal).
 """
 
 import argparse
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 
 import quantumattention_tpu as qa
 from quantumattention_tpu import config
-from quantumattention_tpu.utils.profiling import attention_tflops, do_bench
+from quantumattention_tpu.utils.profiling import attention_tflops, bench
 
 
 def main():
-    jax.config.update(
-        "jax_compilation_cache_dir", "/tmp/quantumattention_jax_cache"
-    )
+    from quantumattention_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     p = argparse.ArgumentParser()
     p.add_argument("--seq", type=int, default=131072)
@@ -45,20 +45,19 @@ def main():
     fn = jax.jit(
         lambda q, k, v: qa.attn_func(q, k, v, is_causal=True, window=window)
     )
-    t = do_bench(lambda: fn(q, k, v), iters=3, warmup=1, reps=2)
+    t = bench(fn, (q, k, v), iters=3)
     print(
         f"S={S} causal{wtag} bf16: {t * 1e3:.1f} ms  "
         f"{attention_tflops(t, 1, H, S, S, D, causal=True):.1f} TFLOP/s"
     )
     # Per-block in-kernel quantized path: must stay >= bf16 at long context
-    # (the K-only VMEM cache keeps it alive past the 16 MiB K+V budget).
     fn_pb = jax.jit(
         lambda q, k, v: qa.fp8_attn_func(
             q, k, v, is_causal=True, scaling_method="per-block",
             window=window,
         )
     )
-    t_pb = do_bench(lambda: fn_pb(q, k, v), iters=3, warmup=1, reps=2)
+    t_pb = bench(fn_pb, (q, k, v), iters=3)
     print(
         f"S={S} causal{wtag} per-block: {t_pb * 1e3:.1f} ms  "
         f"{attention_tflops(t_pb, 1, H, S, S, D, causal=True):.1f} TFLOP/s "

@@ -12,17 +12,18 @@ synthesized (1/sqrt(fan_in)-scaled normal, the same family as
 `models/llama.init_params`); throughput and the load path do not depend
 on values, only on shapes/dtypes/layout, which are exact.
 
-~16 GB on disk; runs on CPU only (safe next to a TPU job).
+~16 GB on disk; runs on CPU only.
 
-Usage: python benchmarks/make_hf_checkpoint.py [--out /tmp/llama3_8b_synth]
+Usage: python benchmarks/make_hf_checkpoint.py [--out _checkpoints/llama3_8b_synth]
 """
 
 import argparse
 import json
 import pathlib
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import ml_dtypes
 import numpy as np
@@ -49,7 +50,7 @@ CONFIG = {
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/llama3_8b_synth")
+    ap.add_argument("--out", default="_checkpoints/llama3_8b_synth")
     ap.add_argument("--shard-gb", type=float, default=4.5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()

@@ -7,19 +7,22 @@ same prompts (hot: each adopts the cached prefix pages and prefills only
 its tail chunk).  Decode is held constant (burst path is slot-backend
 only, so per-step decode here — the comparison is prefill wall time).
 
-Usage: python benchmarks/prefix_cache_bench.py   (TPU; ONE process only)
+Usage: python benchmarks/prefix_cache_bench.py   (on a GPU; one process)
 """
 
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/quantumattention_jax_cache")
+from quantumattention_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from quantumattention_tpu.models import llama, quantized

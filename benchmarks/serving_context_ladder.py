@@ -5,20 +5,23 @@ roughly constant (slots x max_len) and shows how decode tokens/s and
 step time move as context doubles — the attention share of the step
 grows with live context while the weight stream stays fixed.
 
-Usage: python benchmarks/serving_context_ladder.py  (TPU; ONE process)
+Usage: python benchmarks/serving_context_ladder.py  (on a GPU; one process)
 """
 
 import gc
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/quantumattention_jax_cache")
+from quantumattention_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from quantumattention_tpu.models import llama, quantized

@@ -4,48 +4,30 @@ Covers the two regimes that matter:
 
   * **Structured masks** (the production case): packed-document /
     block-diagonal and causal+local+global patterns, where whole kernel
-    blocks are empty — the kernel skips their compute AND (via the
-    scalar-prefetched fetch table) their K/V DMAs, so wall-clock scales
-    with density.
+    tiles are empty — each Q tile loops only over its list of active KV
+    tiles, so wall-clock scales with density.
   * **Random granule masks** (the honest worst case): at any useful kernel
     block size a fine-grained random mask almost never zeroes a whole
-    block, so only the fine-mask overhead shows.  Recorded so the negative
-    is not re-derived.
+    block, so only the fine-mask overhead shows.
 
 Usage: python benchmarks/sparse_bench.py [--seq 8192] [--doc 1024]
 """
 
 import argparse
+import os
 import sys
-import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 
-def bench(fn, q, k, v, iters=64):
-    # 64 chained iterations: the fixed ~33 ms dispatch+fetch roundtrip
-    # (bench.py) is ~0.5 ms/iter here — at the old iters=8 it added
-    # ~4 ms/iter to BOTH sides and badly damped the sparse speedup ratios.
-    @jax.jit
-    def run_n(q, k, v):
-        def body(carry, _):
-            o = fn(q + carry.astype(q.dtype), k, v)
-            return jnp.float32(o[0, 0, 0, 0]) * 0.0, None
+def bench(fn, q, k, v, iters=10):
+    from quantumattention_tpu.utils.profiling import bench as time_jit
 
-        c, _ = jax.lax.scan(body, jnp.float32(0.0), None, length=iters)
-        return c
-
-    float(run_n(q, k, v))
-    ts = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        float(run_n(q, k, v))
-        ts.append((time.perf_counter() - t0) / iters)
-    return sorted(ts)[1]
+    return time_jit(fn, (q, k, v), iters)
 
 
 def document_mask(n, doc_granules):
@@ -66,9 +48,9 @@ def local_global_mask(n, local_granules, n_global):
 
 
 def main():
-    jax.config.update(
-        "jax_compilation_cache_dir", "/tmp/quantumattention_jax_cache"
-    )
+    from quantumattention_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=4)

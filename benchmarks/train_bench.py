@@ -1,20 +1,21 @@
-"""Training-step throughput through the fused forward + Pallas backward.
+"""Training-step throughput through the fused forward + per-head plain
+backward.
 
 Usage: python benchmarks/train_bench.py [--layers 2] [--seq 2048] [--batch 4]
-Measured on TPU v5e (8B shapes, 2 layers, S=2048, B=4): ~38k tok/s
-(~102 TFLOP/s effective through fwd+bwd).
+(on a GPU).
 """
 
 import argparse
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 
 from quantumattention_tpu.models import llama
-from quantumattention_tpu.utils.profiling import do_bench
+from quantumattention_tpu.utils.profiling import bench
 
 
 def main():
@@ -34,13 +35,8 @@ def main():
     tokens = jax.random.randint(
         jax.random.PRNGKey(2), (args.batch, args.seq), 0, cfg.vocab_size
     )
-    step = jax.jit(lambda p, t: llama.train_step(p, t, cfg))
-
-    def run():
-        _, loss = step(params, tokens)
-        return loss
-
-    t = do_bench(run, iters=4, warmup=1, reps=3)
+    t = bench(lambda p, t: llama.train_step(p, t, cfg), (params, tokens),
+              iters=4)
     toks = args.batch * (args.seq - 1) / t
     print(
         f"train step ({args.layers}L 8B-shapes S={args.seq} B={args.batch} "

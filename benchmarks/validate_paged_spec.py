@@ -1,4 +1,4 @@
-"""Compiled-TPU validation: paged burst decode + paged/int4 speculative.
+"""Compiled-mode validation: paged burst decode + paged/int4 speculative.
 
 CPU paged tests assert schedule invariants only (the CPU runtime's paged
 flow is nondeterministic — CLAUDE.md); this script runs the SAME parity
@@ -9,23 +9,27 @@ checks exactly on the real chip, where the paged path is deterministic:
   3. paged speculative (greedy) == paged per-step greedy (bit-exact)
   4. kv_int4 slots speculative == kv_int4 plain greedy (bit-exact)
 
-Usage: python benchmarks/validate_paged_spec.py   (TPU; ONE process only)
+Usage: python benchmarks/validate_paged_spec.py   (on a GPU; one process)
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/quantumattention_jax_cache")
+from quantumattention_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from quantumattention_tpu.models import llama
 from quantumattention_tpu.serving.engine import Engine
 
-assert jax.default_backend() != "cpu", "chip validation must run on TPU"
+if jax.default_backend() != "gpu":
+    sys.exit("validate_paged_spec.py needs a GPU")
 
 CFG = llama.tiny()
 PARAMS = llama.init_params(jax.random.PRNGKey(0), CFG)

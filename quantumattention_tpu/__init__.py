@@ -1,6 +1,6 @@
-"""quantumattention_tpu — TPU-native FP8 attention engine.
+"""quantumattention_tpu — FP8 attention engine in JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the full capability surface of the
+A JAX/XLA/Pallas re-design with the full capability surface of the
 reference WaveSpeedAI/QuantumAttention (CUDA/torch, Hopper-only): dynamic FP8
 (and int8) dual-granularity quantization, fused flash-attention kernels,
 graceful SDPA fallback, and a config/flag system — extended with GQA fast

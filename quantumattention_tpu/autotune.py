@@ -1,52 +1,70 @@
-"""Shape-class-keyed block-size autotuner with an on-disk cache.
+"""Shared-memory fit model, timed choice sweeps and their on-disk cache.
 
 The reference delegates autotuning to Inductor's
 ``autotune_select_algorithm`` (reference: inductor/kernels/attention.py:1034),
-benchmarking a pruned choice list per call site and caching the winner.  The
-TPU equivalent has no compiler framework to lean on, so this module supplies
-the same contract directly:
+benchmarking a pruned choice list per call site and caching the winner.
+This module supplies the same contract for the Hopper kernels:
 
-  * a **candidate list** of (block_q, block_kv) pairs pruned by a scoped-VMEM
-    fit model (analogue of ``early_attention_config_prune``,
-    reference attention.py:765-785);
-  * a **timed sweep** (forced-fetch timing so the async dispatch tunnel
-    cannot lie) run once per shape class;
-  * a **persistent JSON cache** keyed by (device kind, shape class) —
-    the analogue of Inductor's best-config cache.
-
-Enabled with ``config.kernel.autotune = True`` (or QUANTUM_ATTN_AUTOTUNE=1);
-the fused kernels consult :func:`lookup` before falling back to the static
-heuristic table.
+  * a **fit model** of one block's shared memory (232,448 bytes on Hopper)
+    that decides how deep a kernel's K/V pipeline can be, and rejects a tile
+    that cannot run at all before anything is compiled (analogue of
+    ``early_attention_config_prune``, reference attention.py:765-785);
+  * a **timed sweep** on the host clock around ``block_until_ready``, run
+    once per shape class (``dispatch``'s ``scaling_method="auto"`` path
+    choice);
+  * a **persistent JSON cache** keyed by (device kind, shape class) — the
+    analogue of Inductor's best-config cache.
 """
 
 from __future__ import annotations
 
 import json
-import math
 import os
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
 
-from . import config
+_CACHE: Optional[Dict[str, Any]] = None
 
-_CACHE: Optional[Dict[str, List[int]]] = None
+#: Shared memory one thread block may use on Hopper (227 KB of the SM's
+#: 256 KB; the hardware limit Mosaic GPU and Triton compile against).
+SMEM_BYTES = 232_448
 
-#: Default candidate grid (pruned per shape by the VMEM model).
-CANDIDATES: Tuple[Tuple[int, int], ...] = (
-    (256, 512),
-    (512, 512),
-    (512, 1024),
-    (512, 2048),
-    (1024, 1024),
-    (1024, 2048),
-    (1024, 4096),
-    (2048, 1024),
-    (2048, 2048),
-)
+#: Shared memory the compiler keeps for barriers, reductions and layout
+#: conversions beside the operand tiles.
+SMEM_RESERVE = 16 * 1024
+
+
+def smem_bytes(
+    block_q: int,
+    block_kv: int,
+    head_dim: int,
+    q_bytes: int,
+    kv_bytes: int,
+    num_stages: int,
+) -> int:
+    """Operand bytes of one attention program: the resident Q tile plus
+    ``num_stages`` buffered K and V tiles."""
+    return (
+        block_q * head_dim * q_bytes
+        + num_stages * 2 * block_kv * head_dim * kv_bytes
+    )
+
+
+def smem_fits(
+    block_q: int,
+    block_kv: int,
+    head_dim: int,
+    q_bytes: int,
+    kv_bytes: int,
+    num_stages: int,
+) -> bool:
+    """Whether the tiles fit one block's shared memory on Hopper."""
+    need = smem_bytes(block_q, block_kv, head_dim, q_bytes, kv_bytes, num_stages)
+    return need + SMEM_RESERVE <= SMEM_BYTES
 
 
 def cache_path() -> Path:
@@ -61,14 +79,12 @@ def _pretuned_path() -> Path:
     return Path(__file__).parent / "pretuned.json"
 
 
-def _load_cache() -> Dict[str, List[int]]:
+def _load_cache() -> Dict[str, Any]:
     """User cache merged over the packaged pretuned defaults.
 
     ``pretuned.json`` ships winners measured on real hardware (keys carry
     the device kind, so foreign entries are inert); the user's on-disk
-    cache always wins.  This is how a fresh machine skips the minutes-per-
-    candidate trace-time sweep for the common shape classes — the same
-    role as Inductor's shipped best-config cache.
+    cache always wins.
     """
     global _CACHE
     if _CACHE is None:
@@ -124,132 +140,15 @@ def shape_key(
     )
 
 
-def _kernel_limit_mb() -> int:
-    """The scoped-VMEM limit the kernel will actually run with.
-
-    Mirrors ops.flash._vmem_limit_bytes so the pruner and the kernel agree
-    (a 32-vs-64 MiB mismatch would reject candidates — including the
-    measured-best (1024, 2048) at d=256 — that the kernel runs fine).
-    """
-    from .utils import checks
-
-    if config.kernel.vmem_limit_mb:
-        return int(config.kernel.vmem_limit_mb)
-    return 64 if checks.tpu_generation() >= 5 else 16
-
-
-def vmem_fits(
-    block_q: int,
-    block_kv: int,
-    head_dim: int,
-    qkv_bytes: int = 2,
-    limit_mb: Optional[int] = None,
-) -> bool:
-    """Scoped-VMEM fit model (reference prune analogue, attention.py:765-785).
-
-    Counts the score/probability tiles (fp32), the fp32 accumulator + stats
-    scratch, and double-buffered Q/K/V blocks, against a conservative slice
-    of the limit the kernel will actually request.
-    """
-    if limit_mb is None:
-        limit_mb = _kernel_limit_mb()
-    tiles = 2 * block_q * block_kv * 4  # s and p, fp32
-    scratch = block_q * head_dim * 4 + 2 * block_q * 128 * 4
-    buffers = 2 * (block_q + 2 * block_kv) * head_dim * qkv_bytes
-    return tiles + scratch + buffers <= limit_mb * 1024 * 1024
-
-
-def prune_candidates(
-    q_len: int,
-    kv_len: int,
-    head_dim: int,
-    candidates: Sequence[Tuple[int, int]] = CANDIDATES,
-    max_candidates: int = 5,
-) -> List[Tuple[int, int]]:
-    """VMEM-pruned candidate list, capped near the heuristic pick.
-
-    Every candidate costs a full kernel compile before it can be timed
-    (minutes each through a remote Mosaic compiler), so the sweep is capped
-    at ``max_candidates``, keeping the heuristic table's pick plus its
-    nearest neighbors in log-block-size distance (the same shrink-toward-
-    known-good policy as the reference's heuristic pruning,
-    attention.py:709-785).
-    """
-    out = []
-    for bq, bkv in candidates:
-        if bq > max(q_len, 128) * 2 or bkv > max(kv_len, 128) * 2:
-            continue
-        if not vmem_fits(bq, bkv, head_dim):
-            continue
-        out.append((bq, bkv))
-    if not out:
-        return [(min(512, max(q_len, 128)), min(512, max(kv_len, 128)))]
-    if len(out) > max_candidates:
-        from .ops.flash import _heuristic_blocks
-
-        h_bq, h_bkv = _heuristic_blocks(q_len, kv_len, head_dim)
-
-        def dist(c):
-            return abs(math.log2(c[0] / h_bq)) + abs(math.log2(c[1] / h_bkv))
-
-        out = sorted(out, key=dist)[:max_candidates]
-    return out
-
-
-def _time_fetch(fn: Callable[[], jax.Array], iters: int = 3) -> float:
-    """Median wall time of fn with a forced device fetch.
-
-    Every call pays the fixed ~33 ms dispatch+fetch roundtrip (bench.py
-    documents the t(I) = fixed/I + t_true fit).  A constant offset keeps
-    the argmin over same-shape candidates, but drowns sub-ms differences
-    in rep noise — prefer :func:`_time_chained` (eps-taking runners).
-    """
-    float(jnp.sum(fn()).astype(jnp.float32))  # compile + warm
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        float(jnp.sum(fn()).astype(jnp.float32))
-        times.append(time.perf_counter() - t0)
-    return sorted(times)[len(times) // 2]
-
-
-def _time_chained(
-    run: Callable[..., jax.Array], args: tuple = (), reps: int = 3
-) -> float:
-    """Median per-iteration wall time of ``run(eps, *args)``, iterations
-    chained through the f32 scalar ``eps`` inside one jitted scan so the
-    fixed ~33 ms roundtrip amortizes.  Chain length adapts to the kernel:
-    long enough that the roundtrip is <~12% of the chain, capped at 256.
-
-    Kernel inputs MUST come through ``args`` (jit parameters), never a
-    closure: closed-over device arrays become program CONSTANTS, and a
-    multi-hundred-MB constant blob overflows the remote compiler's request
-    limit (HTTP 413) after minutes of tracing — the all-candidates-fail
-    mode that silently degraded tuning at benchmark shapes.
-    """
-    z = jnp.float32(0.0)
-    float(jnp.sum(run(z, *args)).astype(jnp.float32))  # compile + warm
-    t0 = time.perf_counter()
-    float(jnp.sum(run(z, *args)).astype(jnp.float32))
-    t_rough = time.perf_counter() - t0  # ~ t_true + roundtrip
-    t_est = max(t_rough - 0.030, 5e-5)
-    n = int(min(256, max(8, math.ceil(0.25 / t_est))))
-
-    @jax.jit
-    def run_n(e0, *a):
-        def body(c, _):
-            o = run(c, *a)
-            return jnp.float32(o.reshape(-1)[0]) * 0.0, None
-
-        c, _ = jax.lax.scan(body, e0, None, length=n)
-        return c
-
-    float(run_n(z, *args))  # compile the chained program
+def time_call(fn: Callable[..., Any], args: tuple = (), reps: int = 5) -> float:
+    """Median wall time of ``fn(*args)`` on the host clock around
+    ``block_until_ready``, after one warm-up call that compiles."""
+    jax.block_until_ready(fn(*args))
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        float(run_n(z, *args))
-        times.append((time.perf_counter() - t0) / n)
+        jax.block_until_ready(fn(*args))
+        times.append(time.perf_counter() - t0)
     return sorted(times)[len(times) // 2]
 
 
@@ -257,12 +156,11 @@ def run_outside_trace(fn: Callable[[], object]):
     """Run ``fn()`` on a fresh thread, escaping any ambient JAX trace (JAX
     trace state is thread-local).
 
-    This is how in-jit pre-tuning executes real compiled kernels at trace
+    This is how in-jit tuning executes real compiled kernels at trace
     time.  ``jax.ensure_compile_time_eval()`` is NOT usable for this: under
     it ``pallas_call`` kernels are traced against eval rules that don't
-    exist (``program_id``), so every timed candidate raises and the tuner
-    silently degrades.  A clean thread sees no ambient trace, so jit and
-    pallas compile and execute normally on the same devices.
+    exist (``program_id``).  A clean thread sees no ambient trace, so jit
+    and pallas compile and execute normally on the same devices.
     """
     import concurrent.futures
 
@@ -270,44 +168,14 @@ def run_outside_trace(fn: Callable[[], object]):
         return ex.submit(fn).result()
 
 
-def _time_candidate(run) -> float:
-    """Chained timing for ``(fn, args)`` candidate pairs — the fused
-    kernels' runners: ``fn(eps, *args)`` with the buffers as jit
-    parameters so they don't become program constants (HTTP 413, see
-    :func:`_time_chained`).  Bare callables keep legacy behavior:
-    eps-taking ones chain with no extra args, zero-arg ones time per
-    dispatch (test/simulation runners with trace-time side effects)."""
-    if isinstance(run, tuple):
-        fn, args = run
-        return _time_chained(fn, tuple(args))
-    import inspect
-
-    try:
-        takes_eps = len(inspect.signature(run).parameters) > 0
-    except (TypeError, ValueError):  # pragma: no cover - builtins etc.
-        takes_eps = False
-    return _time_chained(run) if takes_eps else _time_fetch(run)
-
-
-def lookup(key: str) -> Optional[Tuple[int, int]]:
+def lookup(key: str):
+    """Cached winner for ``key`` (lists come back as tuples), or None."""
     hit = _load_cache().get(key)
-    if isinstance(hit, list) and len(hit) == 2:
-        return tuple(hit)  # type: ignore[return-value]
-    return None
+    return tuple(hit) if isinstance(hit, list) else hit
 
 
-def record(key: str, block_q: int, block_kv: int) -> None:
-    _load_cache()[key] = [block_q, block_kv]
-    _save_cache()
-
-
-def lookup_value(key: str):
-    """Raw cache access for non-block entries (e.g. backend-path choices)."""
-    return _load_cache().get(key)
-
-
-def record_value(key: str, value) -> None:
-    _load_cache()[key] = value
+def record(key: str, value) -> None:
+    _load_cache()[key] = list(value) if isinstance(value, tuple) else value
     _save_cache()
 
 
@@ -315,11 +183,9 @@ def synth_like(t: "jax.Array") -> "jax.Array":
     """A concrete random array matching a (possibly abstract) array's shape
     class.
 
-    The enabler for tuning *inside* ``jax.jit``: the Inductor analogue
-    benchmarks real buffers at compile time (reference attention.py:1034);
-    JAX tracing only carries avals, so we synthesize device-resident inputs
-    of the same shape/dtype and time those.  Values are irrelevant to
-    kernel timing (no data-dependent control flow on TPU).
+    The enabler for tuning *inside* ``jax.jit``: JAX tracing only carries
+    avals, so we synthesize device-resident inputs of the same shape/dtype
+    and time those.
     """
     dtype = jnp.dtype(t.dtype)
     key = jax.random.PRNGKey(0)
@@ -333,35 +199,23 @@ def synth_like(t: "jax.Array") -> "jax.Array":
     return jax.random.normal(key, t.shape, dtype)
 
 
-def tune(
-    key: str,
-    run_with_blocks: Callable[[int, int], Callable[[], jax.Array]],
-    candidates: Sequence[Tuple[int, int]],
-) -> Tuple[int, int]:
-    """Time each candidate once, cache and return the winner.
+def tune(key: str, runner_for: Callable[[Any], Any], choices: Sequence[Any]):
+    """Time each choice once, cache and return the winner.
 
-    ``run_with_blocks(bq, bkv)`` returns a callable executing the kernel at
-    those block sizes — either ``run(eps)`` taking an f32 scalar folded
-    into an input (timed with a chained scan, required for sub-ms kernels)
-    or a zero-arg legacy ``run()`` (timed per dispatch).
+    ``runner_for(choice)`` returns either a zero-argument callable or an
+    ``(fn, args)`` pair whose buffers ride as call arguments.  A choice
+    that fails to run raises: choices that cannot run on the card are
+    pruned by the caller (the fit model above) before they are timed.
     """
     hit = lookup(key)
     if hit is not None:
         return hit
-    best: Optional[Tuple[int, int]] = None
-    best_t = float("inf")
-    for bq, bkv in candidates:
-        try:
-            t = _time_candidate(run_with_blocks(bq, bkv))
-        except Exception:  # compile failure (e.g. VMEM) — skip candidate
-            continue
+    best, best_t = None, float("inf")
+    for choice in choices:
+        run = runner_for(choice)
+        fn, args = run if isinstance(run, tuple) else (run, ())
+        t = time_call(fn, tuple(args))
         if t < best_t:
-            best, best_t = (bq, bkv), t
-    if best is None:
-        # Every candidate failed (shape/dtype the kernel rejects, or a
-        # systemic compile error): fall back to the first candidate but do
-        # NOT persist it — recording an untimed pick would pin an arbitrary
-        # config for this shape class forever.
-        return candidates[0]
-    record(key, *best)
-    return best
+            best, best_t = choice, t
+    record(key, best)
+    return lookup(key)

@@ -1,6 +1,6 @@
 """Config/flag system for quantumattention_tpu.
 
-TPU-native re-design of the reference's env-var-driven torch ConfigModule
+JAX re-design of the reference's env-var-driven torch ConfigModule
 (reference: src/quantum_attn/config.py:1-41): a tree of plain namespaces whose
 defaults come from ``QUANTUM_ATTN_*`` environment variables, plus a
 ``patch()`` context manager with the same dotted-key semantics the reference's
@@ -42,97 +42,52 @@ class _Namespace:
 
 
 # ---------------------------------------------------------------------------
-# Flag tree.  Mirrors the reference's flag surface (config.py:11-31) with
-# TPU-native meanings.
+# Flag tree.  Mirrors the reference's flag surface (config.py:11-31).
 # ---------------------------------------------------------------------------
 
-#: Allow reduced-precision (bf16) accumulation for the P@V matmul inside the
-#: fused kernel.  Analogue of QUANTUM_ATTN_USE_FAST_ACCUM (reference
-#: config.py:11 / inductor use at mm_common.py:79).
+#: Allow reduced-precision accumulation for the P@V matmul inside the fused
+#: kernel.  Analogue of QUANTUM_ATTN_USE_FAST_ACCUM (reference config.py:11 /
+#: inductor use at mm_common.py:79); the Hopper kernel keeps fp32
+#: accumulation and does not read it.
 use_fast_accum: bool = _env_bool("QUANTUM_ATTN_USE_FAST_ACCUM", False)
 
-#: Kernel execution mode: "auto" runs Pallas kernels compiled on TPU and in
-#: interpret mode on CPU; True forces interpret mode everywhere (debugging);
+#: Kernel execution mode: "auto" compiles Pallas kernels on GPU and
+#: interprets them on CPU; True forces interpret mode everywhere (debugging);
 #: False forces compiled mode.
 interpret: Any = _env_str("QUANTUM_ATTN_INTERPRET", "auto")
 
 kernel = _Namespace(
-    # Default Q-sequence block. None => heuristic by shape/dtype.
+    # Default Q-sequence tile of the flash kernel (a power of two). None =>
+    # the per-head-dim default (ops/flash.default_tiles).
     block_q=None,
-    # Default KV-sequence block. None => heuristic.
+    # Default KV-sequence tile. None => the per-head-dim default.
     block_kv=None,
     # Use base-2 exponent domain for the online softmax (folds log2(e) into
     # the scale like the reference's exp2 softmax, tk/attention.py:238-240).
     use_exp2=True,
-    # Run the probability tile's exp2 + row-sum on bf16 vectors (fp32
-    # max-subtract and accumulators).  Measured on v5e at the benchmark
-    # shape: SLOWER (143.7 -> 136.2 bf16, 130 -> 121 per-block) — the v5e
-    # VPU gains nothing from bf16 vectors and the casts cost a pass; kept
-    # as an off-by-default knob for generations where bf16 VPU packs 2x.
+    # Round the probability tile to bf16 before the row sum and the PV
+    # product (fp32 max-subtract and accumulators).  Off by default.
     softmax_bf16=_env_bool("QUANTUM_ATTN_SOFTMAX_BF16", False),
-    # Enable the timed block-size autotuner (shape-class keyed, disk
-    # cached).  On by default, like the reference's compile-time
+    # Enable the timed path tuner for fp8_attention(scaling_method="auto")
+    # (shape-class keyed, disk cached), like the reference's compile-time
     # autotune_select_algorithm (attention.py:1034): the first call per
     # shape class pays a short timed sweep; every later call (and every
     # later process, via the disk cache) takes the cached winner.
     autotune=_env_bool("QUANTUM_ATTN_AUTOTUNE", True),
     # Also tune when first encountered inside jax.jit, by timing
     # synthesized same-shape buffers at trace time (autotune.synth_like).
-    # Without this, traced call sites silently fall back to the heuristic
-    # table on a cache miss.
     autotune_in_jit=_env_bool("QUANTUM_ATTN_AUTOTUNE_IN_JIT", True),
-    # Mosaic scoped-VMEM limit override in MiB (None = compiler default,
-    # 16 MiB on v5e; raising it permits larger score tiles).
-    vmem_limit_mb=None,
-    # Route w8a16 weight matmuls (models/quantized.matmul) through the
-    # Pallas dequantize-in-VMEM kernel (ops/qmm.py).  XLA does NOT fuse
-    # the int8->bf16 weight convert into its dot (measured 291 vs 957
-    # GB/s at decode shapes, 6.9x at prefill shapes —
-    # benchmarks/exp_w8a16.py), so the kernel is the production path on
-    # TPU; interpret-mode (CPU) runs keep the einsum so tests stay fast.
-    # Tensor-parallel serving disables it per-engine: a pallas_call under
-    # plain jit is opaque to GSPMD (serving/tp.py shard-maps attention
-    # but relies on GSPMD to partition the projections).
-    qmm=_env_bool("QUANTUM_ATTN_QMM", True),
-    # Fuse each decoder layer's tail (wo projection + residual + RMSNorm
-    # + SwiGLU MLP + residual) into ONE Pallas call in the decode regime
-    # (ops/qmlp.py).  The measured op-cost model says decode steps are
-    # op-count-bound (~0.1 ms fixed per pallas call, ~300 GB/s XLA weight
-    # streams), so collapsing 2 pallas + ~6 XLA ops per layer into one
-    # call is the single biggest step-time lever at 8B shapes.  True =
-    # compiled TPU only (like qmm); "force" also routes in interpret mode
-    # (CPU differential tests).  Mesh engines patch it off alongside qmm
-    # (a pallas_call is opaque to GSPMD).
-    qmlp=_env_bool("QUANTUM_ATTN_QMLP", True),
-    # Layer-granular decode mega-kernel (ops/megastep.py): decode
-    # attention over the slot cache + wo + residual + RMSNorm + SwiGLU
-    # MLP + residual + next layer's QKV in ONE Pallas call per layer —
-    # the round-5 serving lever (VERDICT r4 item 1).  Supersedes qmlp on
-    # the T=1 decode path when its gate (megastep.megastep_supported)
-    # holds; qmlp remains the fallback for verify/window/int4/TP.  True =
-    # compiled TPU only; "force" also routes in interpret mode (CPU
-    # differential tests).
-    megastep=_env_bool("QUANTUM_ATTN_MEGASTEP", True),
     # Side-buffer paged burst (serving/backends.PagedBackend
     # ._burst_impl_side): keep the page pool scan-INVARIANT across a
     # decode burst, append each step's tokens to a small per-layer side
-    # buffer the paged kernel attends alongside the cache prefix, and
-    # flush once per burst.  The per-step page scatter it replaces feeds
-    # the paged pallas kernel, so XLA silently COPIES the whole pool
-    # every step (copy cost scales with pool bytes — the same trap the
-    # slots backend shed with the mega burst).  False = per-step scatter
-    # burst (kept for A/B and as the int4/window fallback).
+    # buffer attended alongside the cache prefix, and flush once per
+    # burst.  False = per-step scatter burst (also the int4/window path).
     paged_side_burst=_env_bool("QUANTUM_ATTN_PAGED_SIDE_BURST", True),
     # Causal two-stage decomposition inside the flash kernel (reference
-    # inductor/kernels/attention.py:592-641 expressed as predicated Mosaic
-    # regions instead of a grid split): interior (fully-below-diagonal)
-    # blocks run a softmax arm with NO mask code at all; only diagonal-
-    # crossing blocks pay the iota/compare/select passes.  Applies to
-    # clean causal calls (no window/segments/block-mask/ragged tail).
+    # inductor/kernels/attention.py:592-641): KV tiles wholly inside the
+    # visible region run a loop with no mask code at all; only the edge
+    # tiles (causal diagonal, window edges, ragged tail) are masked.
     causal_two_stage=_env_bool("QUANTUM_ATTN_CAUSAL_TWO_STAGE", True),
-    # Use the blockwise Pallas dq/dkv backward kernels (flash_bwd.py);
-    # False falls back to the O(S^2) oracle-recompute VJP.
-    pallas_bwd=_env_bool("QUANTUM_ATTN_PALLAS_BWD", True),
 )
 
 attention = _Namespace(
@@ -145,36 +100,22 @@ attention = _Namespace(
     # Enable the fused Pallas flash kernel (analogue of
     # enable_tk_tma_kernel, config.py:29; default on).
     enable_pallas_kernel=_env_bool("QUANTUM_ATTN_ENABLE_PALLAS_KERNEL", True),
-    # Enable the int8-MXU fast path for the QK^T matmul where the TPU
-    # generation runs 8-bit matmuls at 2x bf16 rate.
+    # Run QK^T of pre-quantized int8 q/k as an int8 x int8 -> int32 dot
+    # (False: upcast both to bf16).
     enable_int8_qk=_env_bool("QUANTUM_ATTN_ENABLE_INT8_QK", True),
-    # Also run the P@V matmul in int8 (per-channel V scales, P scaled by
-    # 127 — SageAttention-style). Off by default: measured slower on v5e
-    # (the VPU cost of quantizing P exceeds the MXU saving); useful where
-    # decode DMA bandwidth dominates or on fp8-native MXUs.
+    # Quantize-in-graph paths also store V as per-channel int8
+    # (SageAttention-style), dequantized per KV tile in the kernel.  Off
+    # by default.
     enable_int8_pv=_env_bool("QUANTUM_ATTN_ENABLE_INT8_PV", False),
-    # fp8-native MXU matmul (e4m3 operands fed to the MXU directly, fp32
-    # accumulation — the reference's fp8 WGMMA analogue). "auto" gates on
-    # tpu_generation() >= 6 (v5e has no fp8 MXU); True forces it on (used
-    # by CPU interpret-mode tests), False forces the upcast/int8 paths.
+    # fp8-native tensor-core matmul (e4m3 operands, fp32 accumulation — the
+    # reference's fp8 WGMMA). "auto" gates on compute capability >= 9.0;
+    # True forces it on (used by CPU interpret-mode tests), False forces
+    # the exact upcast to bf16.
     fp8_dot=_env_str("QUANTUM_ATTN_FP8_DOT", "auto"),
-    # Decode kernel: quantize Q per row in-kernel and run QK^T on the int8
-    # MXU against the int8 KV cache, instead of dequantizing K to bf16.
-    # Off by default: with honest (chained, window-controlled) timing the
-    # kernel is DMA-bound at the HBM roof and all compute restructurings —
-    # this one included — measure within noise of the default (CLAUDE.md
-    # measured truths), so the simpler upcast path stays default.
+    # Decode-kernel variants that run QK^T (decode_int8_qk) or PV
+    # (decode_int8_pv) on int8 operands.  Off by default; the Hopper decode
+    # kernel does not read them (removal: ROADMAP 3.5).
     decode_int8_qk=_env_bool("QUANTUM_ATTN_DECODE_INT8_QK", False),
-    # Decode kernel: also run P@V on the int8 MXU — P (with the token-wise
-    # V scale folded in) is quantized per row to int8, so the V cache block
-    # is consumed WITHOUT the int8->bf16 upcast over (bb, block_kv, D)
-    # elements every step.  The convert work moves to the (bb, G, block_kv)
-    # score tile, D-fold smaller.  Accuracy: attention weights carry ~1/254
-    # rounding (P in [0,1] scaled to int8) — within the decode differential
-    # tolerance.  Measured on v5e (round-robin, window-controlled): within
-    # noise of the default (~1.8-1.9 ms vs 1.8 ms at Llama-3-8B shapes) —
-    # eliminating the upcasts does NOT move the kernel, so its fixed cost
-    # is not VPU converts.  Kept for fp8/int4-native MXU generations.
     decode_int8_pv=_env_bool("QUANTUM_ATTN_DECODE_INT8_PV", False),
 )
 

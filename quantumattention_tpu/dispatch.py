@@ -1,6 +1,6 @@
 """Dispatch / validation / quantization drivers.
 
-TPU re-design of the reference's L4 layer (reference: src/quantum_attn/nn.py).
+JAX re-design of the reference's L4 layer (reference: src/quantum_attn/nn.py).
 The reference's job at this layer is:
 
   * validate inputs per backend and produce machine-readable reason strings
@@ -11,7 +11,7 @@ The reference's job at this layer is:
     (reference nn.py:394-430);
   * wrap the op in the compiler (reference nn.py:373-391,518-539).
 
-On TPU the compiler wrapping collapses away: every function here is plain
+In JAX the compiler wrapping collapses away: every function here is plain
 traceable JAX, so the user's enclosing ``jax.jit`` *is* the compile path and
 validation runs once at trace time on abstract values.  The backend choice
 list (reference's TK kernel → Triton kernel → aten, attention.py:888-1034)
@@ -21,7 +21,6 @@ becomes {Pallas fused kernel, XLA SDPA reference}.
 from __future__ import annotations
 
 import functools
-import math
 from typing import Any, NamedTuple, Optional, Tuple
 
 import jax
@@ -29,13 +28,13 @@ import jax.numpy as jnp
 
 from . import config
 from .ops import autodiff, quant
-from .ops.flash import flash_attention
+from .ops.flash import MAX_HEAD_DIM, flash_attention
 from .ops.sdpa import sdpa_reference
 from .utils import checks
 
 #: Head dims the fused Pallas kernel accepts.  The reference pins {64,128,256}
-#: (nn.py:45-49,127-132); we additionally accept any multiple of the fp32
-#: sublane width up to 512 since Mosaic lane-pads the minor dimension.
+#: (nn.py:45-49,127-132); we additionally accept any multiple of 8 up to 256,
+#: which the kernel zero-pads to the next power of two.
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 
 _FLOAT_QK_DTYPES = (jnp.bfloat16, jnp.float16, jnp.float32)
@@ -95,10 +94,15 @@ def validate_flash_input(
         return False, f"query/key head_dim mismatch: {d_q} vs {d_k}"
     if d_q != d_v:
         return False, f"query/value head_dim mismatch: {d_q} vs {d_v}"
-    if d_q not in SUPPORTED_HEAD_DIMS and not (d_q % 8 == 0 and d_q <= 512):
+    if d_q > MAX_HEAD_DIM:
+        return False, (
+            f"head_dim {d_q} > {MAX_HEAD_DIM} exceeds the kernel's register "
+            "tile (routed to the XLA path)"
+        )
+    if d_q not in SUPPORTED_HEAD_DIMS and d_q % 8 != 0:
         return False, (
             f"head_dim {d_q} unsupported (want one of {SUPPORTED_HEAD_DIMS} "
-            "or a multiple of 8 <= 512)"
+            f"or a multiple of 8 <= {MAX_HEAD_DIM})"
         )
     if is_causal and window is not None and window[1] not in (None, 0):
         return False, "is_causal with a right window extent is contradictory"
@@ -271,9 +275,8 @@ def fp8_attention(
     When ``scale_q``/``scale_k`` are not supplied, Q and K are dynamically
     quantized in-graph at the requested granularity (reference
     ``_fp8_attention_wrapper``, nn.py:394-430) — XLA fuses the amax/scale/cast
-    chain with the surrounding computation.  On TPU generations with an int8
-    MXU fast path, the quantization container is int8 (2x bf16 matmul rate)
-    unless the inputs arrive pre-quantized as fp8.
+    chain with the surrounding computation.  The quantization container is
+    fp8 e4m3, which the kernel feeds to the fp8 tensor cores on Hopper.
     """
     if scaling_method is None:
         scaling_method = "head-wise"
@@ -380,7 +383,7 @@ def _tuned_path(query, key, value, is_causal, scale, window) -> str:
     )
     if window is not None:
         pkey += f"|w{window[0]}_{window[1]}"
-    hit = autotune.lookup_value(pkey)
+    hit = autotune.lookup(pkey)
     if isinstance(hit, str):
         return hit
     default = "per-block"
@@ -389,68 +392,47 @@ def _tuned_path(query, key, value, is_causal, scale, window) -> str:
     if isinstance(query, jax.core.Tracer):
         if not config.kernel.autotune_in_jit or jax.process_count() > 1:
             return default
-        try:
-            # Synthesis AND the timing sweep below must escape the ambient
-            # trace — run on a fresh thread (trace state is thread-local;
-            # autotune.run_outside_trace explains why ensure_compile_time_
-            # eval cannot compile pallas kernels).
-            def _synth_and_sweep():
-                q2, k2, v2 = (
-                    autotune.synth_like(t) for t in (query, key, value)
-                )
-                return _sweep_paths(
-                    q2, k2, v2, is_causal, scale, window, pkey, default
-                )
+        # Synthesis AND the timing sweep below must escape the ambient
+        # trace — run on a fresh thread (trace state is thread-local;
+        # autotune.run_outside_trace explains why ensure_compile_time_
+        # eval cannot compile pallas kernels).
+        def _synth_and_sweep():
+            q2, k2, v2 = (autotune.synth_like(t) for t in (query, key, value))
+            return _sweep_paths(q2, k2, v2, is_causal, scale, window, pkey)
 
-            return autotune.run_outside_trace(_synth_and_sweep)
-        except Exception:
-            return default
-    return _sweep_paths(
-        query, key, value, is_causal, scale, window, pkey, default
-    )
+        return autotune.run_outside_trace(_synth_and_sweep)
+    return _sweep_paths(query, key, value, is_causal, scale, window, pkey)
 
 
-def _sweep_paths(query, key, value, is_causal, scale, window, pkey, default):
+def _sweep_paths(query, key, value, is_causal, scale, window, pkey):
     from . import autotune
 
-    def _mk(method):
+    def runner(method):
         if method == "none":
-            return jax.jit(
+            fn = jax.jit(
                 lambda q, k, v: flash_attention(
                     q, k, v, is_causal=is_causal, sm_scale=scale,
                     window=window,
                 )
             )
-        if method == "sdpa":
+        elif method == "sdpa":
             # XLA-native fallback as a timed candidate (the reference lets
             # autotune pick the aten extern kernel too,
-            # attention.py:1015-1031) — it wins at tiny shapes where the
+            # attention.py:1015-1031) — it can win at tiny shapes where the
             # fused kernel's fixed per-call cost dominates.
-            return jax.jit(
+            fn = jax.jit(
                 lambda q, k, v: sdpa_fallback(
                     q, k, v, is_causal=is_causal, scale=scale, window=window
                 )
             )
-        statics = _Fp8Statics(method, is_causal, scale, window)
-        return jax.jit(lambda q, k, v: _fp8_forward(statics, q, k, v))
+        else:
+            statics = _Fp8Statics(method, is_causal, scale, window)
+            fn = jax.jit(lambda q, k, v: _fp8_forward(statics, q, k, v))
+        return fn, (query, key, value)
 
-    best, best_t = default, float("inf")
-    for name in ("none", "head-wise", "per-block", "sdpa"):
-        fn = _mk(name)
-        try:
-            # Buffers as jit parameters, not closures (HTTP 413 — see
-            # autotune._time_chained).
-            t = autotune._time_chained(
-                lambda eps, q, k, v, fn=fn: fn(q + eps.astype(q.dtype), k, v),
-                (query, key, value),
-            )
-        except Exception:  # compile failure: skip this choice
-            continue
-        if t < best_t:
-            best, best_t = name, t
-    if best_t < float("inf"):
-        autotune.record_value(pkey, best)
-    return best
+    return autotune.tune(
+        pkey, runner, ("none", "head-wise", "per-block", "sdpa")
+    )
 
 
 class _Fp8Statics(NamedTuple):
@@ -461,29 +443,20 @@ class _Fp8Statics(NamedTuple):
 
 
 def _fp8_forward(statics: "_Fp8Statics", query, key, value):
-    """Quantize-in-graph fp8/int8 fused forward on float inputs."""
+    """Quantize-in-graph fp8 fused forward on float inputs."""
     if statics.scaling_method == "per-block":
-        # In-kernel fused quantization: per-(Q-block/KV-block) scalar
-        # scales computed on the fly (BASELINE.json config 2; finer
-        # granularity than head-wise, no preprocessing passes).
+        # In-kernel fused quantization: per-(Q-tile/KV-tile) scalar
+        # scales computed on the fly (finer granularity than head-wise,
+        # no preprocessing passes).
         return flash_attention(
             query, key, value, fused_block_quant=True,
             is_causal=statics.is_causal, sm_scale=statics.scale,
             window=statics.window,
         )
-    qdtype = (
-        jnp.int8
-        if config.attention.enable_int8_qk and checks.supports_int8_mxu()
-        else jnp.float8_e4m3fn
-    )
-    q8, scale_q = _quantize_for(query, statics.scaling_method, qdtype)
-    k8, scale_k = _quantize_for(key, statics.scaling_method, qdtype)
+    q8, scale_q = _quantize_for(query, statics.scaling_method, jnp.float8_e4m3fn)
+    k8, scale_k = _quantize_for(key, statics.scaling_method, jnp.float8_e4m3fn)
     scale_v = None
-    if (
-        qdtype == jnp.int8
-        and config.attention.enable_int8_pv
-        and not checks.is_8bit_dtype(value.dtype)
-    ):
+    if config.attention.enable_int8_pv and not checks.is_8bit_dtype(value.dtype):
         value, scale_v = quant.quantize_channel_wise(value, jnp.int8)
     return flash_attention(
         q8,
@@ -509,40 +482,13 @@ def _fp8_diff_fwd(statics, query, key, value):
 
 def _fp8_diff_bwd(statics, residuals, g):
     """STE backward for the quantize-in-graph path: the gradient of exact
-    (unquantized) attention at the float inputs.
-
-    Blockwise route (default): recompute the float forward's (o, m, l) with
-    the fused kernel, then run the Pallas dq/dkv backward kernels — O(S)
-    memory, the same recompute-in-backward structure as standard flash
-    training.  The O(S^2) oracle VJP (materializes full logits) remains
-    only as the config-gated fallback.
-    """
+    (unquantized) attention at the float inputs, computed one head at a
+    time by the plain VJP (``autodiff.oracle_vjp``)."""
     query, key, value = residuals
-    window = statics.window
-    if statics.is_causal and window is not None:
-        window = (window[0], None)
-
-    if config.kernel.pallas_bwd:
-        from .ops.flash_bwd import flash_attention_bwd
-
-        out, (m, l) = flash_attention(
-            query, key, value, is_causal=statics.is_causal,
-            sm_scale=statics.scale, window=window, return_residuals=True,
-        )
-        return flash_attention_bwd(
-            query, key, value, out, g.astype(out.dtype), m, l,
-            is_causal=statics.is_causal, sm_scale=statics.scale,
-            window=window,
-        )
-
-    def oracle(q, k, v):
-        return sdpa_reference(
-            q, k, v, is_causal=statics.is_causal, scale=statics.scale,
-            window=window, out_dtype=v.dtype,
-        )
-
-    _, vjp = jax.vjp(oracle, query, key, value)
-    return vjp(g.astype(value.dtype))
+    return autodiff.oracle_vjp(
+        query, key, value, g, is_causal=statics.is_causal,
+        sm_scale=statics.scale, window=statics.window,
+    )
 
 
 _fp8_attention_diff.defvjp(_fp8_diff_fwd, _fp8_diff_bwd)

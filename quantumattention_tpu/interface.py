@@ -1,6 +1,6 @@
 """Public functional API.
 
-Name-for-name TPU re-expression of the reference's user-facing surface
+Name-for-name JAX re-expression of the reference's user-facing surface
 (reference: src/quantum_attn/quantum_attn_interface.py):
 
   attn_func / attn_func_with_fallback                   (:41-98)

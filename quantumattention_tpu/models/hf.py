@@ -133,8 +133,7 @@ def params_from_hf(
         return qproj(arr) if qmode else arr
 
     def w8(name):
-        # lm_head / MoE expert matrices stay int8 even under int4 (the
-        # qmm int8 path and the 3-D einsum path respectively — mirrors
+        # lm_head / MoE expert matrices stay int8 even under int4 (mirrors
         # quantized.quantize_params_int4).
         arr = jnp.asarray(_to_np(sd[name]).T, dtype)
         return _q8(arr) if qmode else arr

@@ -1,6 +1,6 @@
 """Parameter checkpoint save/load (SURVEY.md §5 checkpoint/resume).
 
-The reference has no persistence (inference-only kernels); the TPU build's
+The reference has no persistence (inference-only kernels); this build's
 model layer needs it for serving and training restarts.  Format: one .npz
 holding every leaf keyed by its pytree path — dependency-free, portable,
 and mmap-friendly on load.  (For multi-host sharded checkpoints, orbax is

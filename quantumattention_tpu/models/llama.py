@@ -2,16 +2,16 @@
 
 The reference ships no model code — its README positions it as a drop-in for
 ``F.scaled_dot_product_attention`` inside user transformers.  This module is
-the TPU build's "minimum end-to-end slice" (SURVEY.md §7 step 5): a
+this build's "minimum end-to-end slice" (SURVEY.md §7 step 5): a
 Llama-style decoder (RMSNorm → GQA attention with RoPE → SwiGLU MLP) whose
 attention is served by ``fp8_attn_func_with_fallback`` /
 ``attn_func_with_fallback``, demonstrating exactly how a user of the
 reference would drop the engine into a real model.
 
-Design notes (TPU-first):
+Design notes:
   * pure-functional params pytree — jit/pjit/grad compose freely;
-  * all matmuls stay (large, bf16) on the MXU; RoPE/RMSNorm are elementwise
-    VPU work XLA fuses into the surrounding matmuls;
+  * all matmuls stay large bf16 einsums on the tensor cores; RoPE/RMSNorm
+    are elementwise work XLA fuses around them;
   * every weight is stored transposed-for-einsum so no relayout is needed;
   * sharding is externalized: `parallel.mesh` assigns PartitionSpecs over a
     device mesh, nothing in here mentions devices.
@@ -339,24 +339,17 @@ def _layer_attention(
     cos: jax.Array,
     sin: jax.Array,
     attend_fn,
-    qkv: Optional[jax.Array] = None,
 ):
     """One attention sublayer over (B, T, E): norm -> QKV -> RoPE ->
     ``attend_fn(idx, q, k, v)`` on (B, H, T, D) tensors.
 
     Returns (attn_out, k, v): attn_out is (B, T, q_dim) BEFORE the output
-    projection (wo + residual live in ``_layer_tail`` so the decode regime
-    can fuse them into the MLP kernel); k/v are the post-RoPE tensors
-    (for KV caching).  ``qkv``: the pre-computed (bias-free) fused QKV
-    projection from the previous layer's tail kernel — norm and matmul
-    are skipped.
+    projection (wo + residual live in ``_layer_tail``); k/v are the
+    post-RoPE tensors (for KV caching).
     """
     batch, t, _ = x.shape
-    if qkv is not None:
-        q, k, v = _split_qkv(cfg, layer, qkv)
-    else:
-        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv_proj(cfg, layer, h)
+    h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+    q, k, v = _qkv_proj(cfg, layer, h)
     q = q.reshape(batch, t, cfg.num_q_heads, cfg.head_dim).transpose(0, 2, 1, 3)
     k = k.reshape(batch, t, cfg.num_kv_heads, cfg.head_dim).transpose(0, 2, 1, 3)
     v = v.reshape(batch, t, cfg.num_kv_heads, cfg.head_dim).transpose(0, 2, 1, 3)
@@ -368,59 +361,11 @@ def _layer_attention(
 
 
 def _layer_tail(
-    cfg: LlamaConfig,
-    layer: Params,
-    x: jax.Array,
-    attn_out: jax.Array,
-    next_layer: Optional[Params] = None,
-):
-    """Output projection + residual + MLP sublayer.
-
-    In the decode regime on a ``quantized.fuse_projections`` w8a16/w4a16
-    tree this is ONE Pallas call (``ops/qmlp.fused_layer_tail``): the
-    measured op-cost model (docs/ARCHITECTURE.md) makes a 32-layer decode
-    step op-count-bound, so wo + residual + rms_norm + gate/up + silu +
-    down + residual collapse into a single kernel that streams all three
-    weight matrices at the marginal DMA rate — and, when ``next_layer``
-    has a fused quantized ``w_qkv``, the kernel ALSO emits the next
-    layer's attn-norm + QKV projection (one fewer dispatch per layer).
-    Everywhere else (prefill, training, full-precision or unfused trees,
-    MoE, interpret mode) the unfused path runs.
-
-    Returns ``(new_x, qkv_next_or_None)``.
-    """
-    from ..ops import qmlp
-
-    if qmlp.tail_supported(cfg, layer, x):
-        lead = x.shape[:-1]
-        fold = next_layer is not None and qmlp.qkv_fold_supported(
-            cfg, layer, next_layer, x
-        )
-        kw = {}
-        if fold:
-            kw = dict(
-                next_attn_norm=next_layer["attn_norm"],
-                next_w_qkv=next_layer["w_qkv"],
-            )
-        res = qmlp.fused_layer_tail(
-            x.reshape(-1, x.shape[-1]),
-            layer["mlp_norm"],
-            layer["w_gate_up"],
-            layer["w_down"],
-            eps=cfg.rms_norm_eps,
-            attn_out=attn_out.reshape(-1, attn_out.shape[-1]),
-            wo=layer["wo"],
-            **kw,
-        )
-        if fold:
-            y, qkv = res
-            return (
-                y.reshape(*lead, x.shape[-1]),
-                qkv.reshape(*lead, qkv.shape[-1]),
-            )
-        return res.reshape(*lead, x.shape[-1]), None
+    cfg: LlamaConfig, layer: Params, x: jax.Array, attn_out: jax.Array
+) -> jax.Array:
+    """Output projection + residual + MLP sublayer."""
     x = x + quantized.matmul("bsq,qe->bse", attn_out, layer["wo"])
-    return mlp_block(cfg, layer, x), None
+    return mlp_block(cfg, layer, x)
 
 
 def attention_block(
@@ -488,16 +433,13 @@ def _decoder(
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     x = quantized.embed_lookup(params["embed"], tokens, cfg.dtype)
     kv = []
-    layers = params["layers"]
-    qkv_pre = None
-    for idx, layer in enumerate(layers):
+    for idx, layer in enumerate(params["layers"]):
         attn_out, k, v = _layer_attention(
-            cfg, idx, layer, x, cos, sin, attend_fn, qkv=qkv_pre
+            cfg, idx, layer, x, cos, sin, attend_fn
         )
         if collect_kv:
             kv.append((k, v))
-        nxt = layers[idx + 1] if idx + 1 < len(layers) else None
-        x, qkv_pre = _layer_tail(cfg, layer, x, attn_out, next_layer=nxt)
+        x = _layer_tail(cfg, layer, x, attn_out)
     if last_pos is not None:
         x = x[jnp.arange(x.shape[0]), last_pos][:, None, :]  # (B, 1, E)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -598,14 +540,9 @@ def _forward_decode_lean(params, tokens, positions, cfg, attend_fn):
     x = quantized.embed_lookup(params["embed"], tokens[:, None], cfg.dtype)[
         :, 0
     ]
-    layers = params["layers"]
-    qkv_pre = None
-    for idx, layer in enumerate(layers):
-        if qkv_pre is not None:
-            qkv = qkv_pre
-        else:
-            h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
-            qkv = quantized.matmul("be,ef->bf", h, layer["w_qkv"])
+    for idx, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        qkv = quantized.matmul("be,ef->bf", h, layer["w_qkv"])
         # Packed rotate-half RoPE over q and k together (split-halves
         # convention, identical formula/order to apply_rope — bit-exact).
         qk = qkv[:, : (G + Hkv) * D].reshape(
@@ -621,14 +558,7 @@ def _forward_decode_lean(params, tokens, positions, cfg, attend_fn):
         v = qkv[:, (G + Hkv) * D :].reshape(batch, Hkv, D)
         attn = attend_fn(idx, q, k, v)  # (B, G, D)
         attn_flat = attn.astype(x.dtype).reshape(batch, G * D)
-        nxt = layers[idx + 1] if idx + 1 < len(layers) else None
-        # 3-D views keep _layer_tail's unfused fallback path legal (its
-        # einsums are bse-shaped); the fused kernel flattens them anyway.
-        x3, qkv3 = _layer_tail(
-            cfg, layer, x[:, None, :], attn_flat[:, None, :], next_layer=nxt
-        )
-        x = x3[:, 0, :]
-        qkv_pre = qkv3[:, 0, :] if qkv3 is not None else None
+        x = _layer_tail(cfg, layer, x[:, None, :], attn_flat[:, None, :])[:, 0]
     x = rms_norm(x[:, None, :], params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_embeddings:
         logits = quantized.tied_head_matmul(x, params["embed"])

@@ -1,19 +1,19 @@
 """Mixture-of-Experts FFN (Mixtral-style) for the Llama-family decoder.
 
 The reference has no model code at all (SURVEY.md §0 — it is a kernel +
-dispatch library); MoE support is a completeness extension of the TPU
+dispatch library); MoE support is a completeness extension of this
 build's model layer (VERDICT round 1, item 10: make the PP/EP position
 explicit or implement it — pipeline parallelism landed in
 ``parallel/pp.py``, this module plus ``parallel/ep.py`` closes expert
 parallelism).
 
-TPU-first design — the classic GShard/Mesh-TensorFlow *dense dispatch*
+Design — the classic GShard/Mesh-TensorFlow *dense dispatch*
 formulation rather than a CUDA-style gather/scatter of ragged token
 groups:
 
   * routing, dispatch and combine are expressed as one-hot einsums with
     **static shapes** (tokens × experts × capacity), so everything jits,
-    differentiates, and shards; the MXU sees three large batched matmuls
+    differentiates, and shards; the tensor cores see three large batched matmuls
     per expert layer instead of data-dependent indexing;
   * over-capacity tokens are *dropped* (their combine weight is zero and
     the residual stream carries them through unchanged) — the standard
@@ -69,7 +69,7 @@ def expert_capacity(
     capacity_factor: float,
 ) -> int:
     """Per-expert token capacity, rounded up to the fp32 sublane width (8)
-    so the (E, C, D) expert batches keep MXU-friendly shapes."""
+    so the (E, C, D) expert batches keep matmul-friendly shapes."""
     raw = math.ceil(
         capacity_factor * num_experts_per_tok * num_tokens / num_experts
     )
@@ -179,7 +179,7 @@ def init_moe_params(
 def expert_ffn(moe: Params, x_e: jax.Array) -> jax.Array:
     """Batched SwiGLU over per-expert token groups: (E, C, H) -> (E, C, H).
 
-    One einsum per projection — E batched MXU matmuls, no per-expert loop.
+    One einsum per projection — E batched matmuls, no per-expert loop.
     ``parallel/ep.py`` calls this on the locally-resident expert shard.
     """
     from . import quantized

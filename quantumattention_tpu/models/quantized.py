@@ -1,18 +1,15 @@
 """Weight-only int8 quantization (w8a16) for the decoder parameter tree.
 
-Beyond the reference (an attention kernel library — SURVEY.md §0), and the
-piece that makes single-chip serving of 8B-class models REAL on a 16 GB
-part: bf16 Llama-3-8B weights alone are ~16 GB, so they must be stored
-int8 (~8 GB) to coexist with a KV cache.  Decode is weight-bandwidth
-bound at batch 1-64, so halving weight bytes also halves the non-attention
-HBM traffic per token.
+Beyond the reference (an attention kernel library — SURVEY.md §0).
+Decode is weight-bandwidth bound at batch 1-64, so halving weight bytes
+also halves the non-attention HBM traffic per token.
 
 Scheme: symmetric per-output-channel scales (reduce |w| over the
 contracted input axis), bf16 compute — the standard w8a16 recipe.  A
 quantized matrix is ``{"q": int8 (…, in, out), "s": fp32 (…, 1, out)}``;
 ``matmul()`` consumes either representation so every projection site in
 ``models/llama.py`` / ``models/moe.py`` works with mixed trees.  The
-int8->bf16 convert fuses into the XLA dot's operand read on TPU.
+int8->bf16 convert is the XLA dot's operand prologue.
 
 Inference-only: int8 leaves are not differentiable — ``train_step`` on a
 quantized tree fails loudly (use the full-precision tree + the fp8/STE
@@ -51,9 +48,8 @@ def is_quantized4(w: Any) -> bool:
 INT4_GROUP = 128
 #: Packing block: rows pair split-halves WITHIN each 256-row block
 #: (byte row r of block g holds original rows 256g+r low / 256g+128+r
-#: high), so any kernel row-tile that is a multiple of 128 packed rows
-#: covers a contiguous original-row range — what the qmm/qmlp int4 tiles
-#: rely on.
+#: high), so any row tile that is a multiple of 128 packed rows covers a
+#: contiguous original-row range.
 _PACK_BLOCK = 2 * INT4_GROUP
 
 
@@ -97,7 +93,7 @@ def quantize_matrix_int4(w: jax.Array) -> Dict[str, jax.Array]:
 
 def dequantize_int4(w: Dict[str, jax.Array], dtype=jnp.float32) -> jax.Array:
     """{"q4", "s"} -> the (in, out) dequantized matrix (reference path for
-    tests and the einsum fallback; kernels dequantize tiles in VMEM)."""
+    tests and the int4 matmul)."""
     u = unpack_int4_rows(w["q4"], jnp.int8).astype(jnp.float32)
     r, c = u.shape
     u = u.reshape(r // INT4_GROUP, INT4_GROUP, c) * w["s"][:, None, :]
@@ -115,91 +111,21 @@ def quantize_matrix(w: jax.Array) -> Dict[str, jax.Array]:
     return {"q": q, "s": s}
 
 
-def _plain_contraction(spec: str, x_ndim: int) -> bool:
-    """True iff ``spec`` is "...e,eo->...o": contract x's last axis with a
-    2-D weight's first, output channel last — the only pattern the qmm
-    kernel implements (every decoder projection matches)."""
-    try:
-        ins, outp = spec.split("->")
-        xs, ws = ins.split(",")
-    except ValueError:
-        return False
-    return (
-        len(ws) == 2
-        and len(xs) == x_ndim
-        and xs[-1] == ws[0]
-        and outp == xs[:-1] + ws[1]
-    )
-
-
-def matmul(
-    spec: str, x: jax.Array, w: Any, *, use_kernel: bool | None = None
-) -> jax.Array:
+def matmul(spec: str, x: jax.Array, w: Any) -> jax.Array:
     """``einsum(spec, x, w)`` where ``w`` may be quantized.
 
-    The output channel must be the LAST result axis (true of every
-    projection in the decoder), so the (…, 1, out) scale broadcasts onto
-    the product by trailing alignment after dropping its keepdim.
-
-    2-D quantized weights route through the Pallas dequantize-in-VMEM
-    kernel (``ops/qmm`` — XLA does not fuse the int8->bf16 convert into
-    its dot; see the ``config.kernel.qmm`` note) when ``use_kernel`` is
-    None (auto: compiled TPU runs only) or True (forced, e.g. interpret-
-    mode tests); the einsum path remains for 3-D expert stacks, odd
-    shapes, and interpret mode.  w4a16 ({"q4", "s"}) matrices route the
-    same way (qmm's int4 tiles); their einsum fallback dequantizes the
-    whole matrix in-graph (fine on CPU/tests; the kernel is the TPU path).
+    The weights are dequantized first — int8 codes times their (…, 1, out)
+    per-output-channel scales, cast to ``x.dtype`` — so the dot only ever
+    sees weights at their true magnitude; XLA's GPU GEMM fusion takes the
+    convert as the dot's operand prologue.  (Scaling the product instead
+    produced NaN logits at Llama-3-8B widths on an H200.)  A w4a16
+    ({"q4", "s"}) matrix is unpacked and dequantized the same way.
     """
     if is_quantized4(w):
-        if use_kernel is None:
-            from ..utils import checks
-            from .. import config
-
-            use_kernel = bool(config.kernel.qmm) and not (
-                checks.resolve_interpret(config.interpret)
-            )
-        if use_kernel and _plain_contraction(spec, x.ndim):
-            from ..ops import qmm
-
-            x2 = x.reshape(-1, x.shape[-1])
-            if qmm.supported4(x2, w["q4"]):
-                y = qmm.quantized_matmul4(x2, w["q4"], w["s"])
-                return y.reshape(*x.shape[:-1], w["q4"].shape[-1])
         return jnp.einsum(spec, x, dequantize_int4(w, x.dtype))
-    if not is_quantized(w):
-        return jnp.einsum(spec, x, w)
-    if use_kernel is None:
-        from ..utils import checks
-        from .. import config
-
-        use_kernel = bool(config.kernel.qmm) and not checks.resolve_interpret(
-            config.interpret
-        )
-        if use_kernel and w["q"].ndim == 2:
-            # Measured op-cost model (benchmarks/op_overhead_probe.py): a
-            # pallas call costs ~0.1 ms fixed + bytes at ~810 GB/s, while
-            # XLA's convert+dot runs ~300 GB/s with ~10 us/op overhead —
-            # the kernel wins when the weight stream is large (decode
-            # MLPs, lm_head) or the op is MXU-bound (prefill); XLA keeps
-            # the small projections.
-            wbytes = w["q"].shape[0] * w["q"].shape[1]
-            rows = 1
-            for d in x.shape[:-1]:
-                rows *= d
-            use_kernel = wbytes >= 32 * 1024 * 1024 or (
-                rows >= 512 and wbytes >= 8 * 1024 * 1024
-            )
-    if use_kernel and _plain_contraction(spec, x.ndim):
-        from ..ops import qmm
-
-        x2 = x.reshape(-1, x.shape[-1])
-        if qmm.supported(x2, w["q"]):
-            y = qmm.quantized_matmul(x2, w["q"], w["s"])
-            return y.reshape(*x.shape[:-1], w["q"].shape[-1])
-    y = jnp.einsum(spec, x, w["q"].astype(x.dtype))
-    # The keepdims scale (…, 1, out) broadcasts onto (…, rows, out) for
-    # both plain (in, out) weights and batched (E, in, out) expert stacks.
-    return (y.astype(jnp.float32) * w["s"]).astype(x.dtype)
+    if is_quantized(w):
+        w = (w["q"].astype(jnp.float32) * w["s"]).astype(x.dtype)
+    return jnp.einsum(spec, x, w)
 
 
 def embed_lookup(embed: Any, tokens: jax.Array, dtype) -> jax.Array:
@@ -226,8 +152,10 @@ def tied_head_matmul(x: jax.Array, embed: Any) -> jax.Array:
     """logits = x @ embed.T for a full or row-quantized embedding table."""
     if not is_quantized(embed):
         return jnp.einsum("bse,ve->bsv", x, embed)
-    y = jnp.einsum("bse,ve->bsv", x, embed["q"].astype(x.dtype))
-    return y.astype(jnp.float32) * embed["s"][:, 0]
+    table = (embed["q"].astype(jnp.float32) * embed["s"]).astype(x.dtype)
+    return jnp.einsum(
+        "bse,ve->bsv", x, table, preferred_element_type=jnp.float32
+    )
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2))
@@ -258,19 +186,15 @@ def init_quantized_params(key: jax.Array, cfg, int4: bool = False) -> Params:
     """``quantize_params(llama.init_params(key, cfg))`` without ever
     materializing the full-precision tree.
 
-    bf16 Llama-3-8B weights are ~16 GB — more than a v5e chip's HBM — so
-    benchmark/serving setups at 8B shapes must go straight to the w8a16
-    representation.  Key schedule and init math replicate
+    Peak extra device memory is one full-precision matrix.  Key schedule
+    and init math replicate
     ``models/llama.init_params`` exactly; the resulting tree matches
     quantizing the full-precision init up to jit-vs-eager fp rounding
     (tested to 1e-5 relative).
 
     ``int4=True``: decoder projections become w4a16 group-wise int4
-    (half the weight bytes again — what the byte-bound decode path
-    streams; measured 1.5x faster layer tails, benchmarks/
-    exp_w4a16_tail.py).  Embedding and lm_head stay int8 (per-row lookup
-    and the qmm int8 path respectively); MoE expert stacks stay int8
-    (the 3-D einsum path)."""
+    (half the weight bytes again).  Embedding and lm_head stay int8;
+    MoE expert stacks stay int8 (the 3-D einsum path)."""
     dense = _init_qdense4 if int4 else _init_qdense
     n_keys = 2 + 7 * cfg.num_layers
     keys = iter(jax.random.split(key, n_keys))
@@ -347,12 +271,9 @@ def _concat_quantized(parts) -> Dict[str, jax.Array]:
 def fuse_projections(params: Params) -> Params:
     """Fuse per-layer QKV and gate/up projections into single matrices.
 
-    Serving optimization for SINGLE-CHIP engines: on the measured runtime
-    every matmul op carries a fixed dispatch cost (~0.1 ms for a pallas
-    call — benchmarks/op_overhead_probe.py), so a 32-layer decode step
-    with 7 matmuls per layer pays more in op count than in bytes; fusing
-    [wq|wk|wv] -> w_qkv and [w_gate|w_up] -> w_gate_up removes 3 ops per
-    layer and doubles the bytes per remaining op (better amortization).
+    Serving optimization for single-card engines: fusing [wq|wk|wv] ->
+    w_qkv and [w_gate|w_up] -> w_gate_up removes 3 matmul ops per layer
+    and doubles the bytes per remaining op.
     Numerics are EXACTLY the einsum's: per-output-channel scales
     concatenate along the fused axis.
 
@@ -386,7 +307,7 @@ def fuse_projections(params: Params) -> Params:
 def quantize_params_int4(params: Params) -> Params:
     """Quantize a full-precision tree's decoder projections to group-wise
     int4 (``quantize_matrix_int4``); embedding stays per-row int8 (lookup
-    path), lm_head int8 (qmm int8 path), MoE expert stacks int8 (3-D
+    path), lm_head int8, MoE expert stacks int8 (3-D
     einsum path).  Matrices whose input dim is not a multiple of 256
     (packing blocks) fall back to int8."""
 

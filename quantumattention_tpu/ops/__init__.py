@@ -1,8 +1,7 @@
-"""Kernels and numerics: fused flash fwd/bwd, decode, paged, quantization."""
+"""Kernels and numerics: fused flash forward, decode, paged, quantization."""
 
 from .decode import decode_attention  # noqa: F401
 from .flash import flash_attention  # noqa: F401
-from .flash_bwd import flash_attention_bwd  # noqa: F401
 from .paged import paged_decode_attention  # noqa: F401
 from .quant import (  # noqa: F401
     dequantize,

@@ -2,16 +2,11 @@
 
 The reference is forward-only by design (its LSE output is commented out,
 reference: src/quantum_attn/tk/attention.py:333-346, and its custom ops are
-registered without autograd).  The TPU build extends the capability surface
-with training support: the fused Pallas kernel serves the forward pass, and a
-``jax.custom_vjp`` supplies gradients.
-
-Round-1 backward strategy: recompute-based VJP through the fp32 SDPA oracle
-(the numerical-semantics definition of the op, reference ops.py:17-29).  This
-is exactly correct — the oracle and the kernel agree to within the accuracy
-bar — and XLA fuses the recompute; the O(S^2) logits materialization is
-acceptable for moderate sequence training and is replaced by blockwise Pallas
-dq/dkv kernels (flash_bwd.py) when available.
+registered without autograd).  This build adds training support: the fused
+Pallas kernel serves the forward pass, and a ``jax.custom_vjp`` supplies
+gradients as the VJP of the plain fp32 attention (the numerical-semantics
+definition of the op, reference ops.py:17-29), computed one head at a time
+(``sdpa_per_head``) so only one head's logits are ever live.
 """
 
 from __future__ import annotations
@@ -20,12 +15,9 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import jax
-import jax.numpy as jnp
 
-from .. import config
 from .flash import flash_attention
-from .flash_bwd import flash_attention_bwd
-from .sdpa import sdpa_reference
+from .sdpa import sdpa_per_head
 
 
 class AttnStatics(NamedTuple):
@@ -53,58 +45,32 @@ def _attn(statics: AttnStatics, q, k, v):
 
 
 def _attn_fwd(statics: AttnStatics, q, k, v):
-    if config.kernel.pallas_bwd:
-        out, (m, l) = flash_attention(
-            q,
-            k,
-            v,
-            is_causal=statics.is_causal,
-            sm_scale=statics.sm_scale,
-            window=statics.window,
-            block_q=statics.block_q,
-            block_kv=statics.block_kv,
-            return_residuals=True,
-        )
-        return out, (q, k, v, out, m, l)
-    out = _attn(statics, q, k, v)
-    return out, (q, k, v)
+    return _attn(statics, q, k, v), (q, k, v)
 
 
-def _oracle(statics: AttnStatics, q, k, v):
-    window = statics.window
-    if statics.is_causal and window is not None:
+def oracle_vjp(q, k, v, g, *, is_causal, sm_scale, window):
+    """Gradients of exact attention at (q, k, v), one head at a time."""
+    if is_causal and window is not None:
         # The kernel treats a right extent as inactive under causal masking
         # (flash.py); mirror that in the recompute.
         window = (window[0], None)
-    return sdpa_reference(
-        q,
-        k,
-        v,
-        is_causal=statics.is_causal,
-        scale=statics.sm_scale,
-        window=window,
-        out_dtype=v.dtype,
-    )
+
+    def oracle(q, k, v):
+        return sdpa_per_head(
+            q, k, v, is_causal=is_causal, scale=sm_scale, window=window,
+            out_dtype=v.dtype,
+        )
+
+    _, vjp = jax.vjp(oracle, q, k, v)
+    return vjp(g.astype(v.dtype))
 
 
 def _attn_bwd(statics: AttnStatics, residuals, g):
-    if len(residuals) == 6:
-        q, k, v, o, m, l = residuals
-        return flash_attention_bwd(
-            q,
-            k,
-            v,
-            o,
-            g.astype(o.dtype),
-            m,
-            l,
-            is_causal=statics.is_causal,
-            sm_scale=statics.sm_scale,
-            window=statics.window,
-        )
     q, k, v = residuals
-    _, vjp = jax.vjp(functools.partial(_oracle, statics), q, k, v)
-    return vjp(g)
+    return oracle_vjp(
+        q, k, v, g, is_causal=statics.is_causal, sm_scale=statics.sm_scale,
+        window=statics.window,
+    )
 
 
 _attn.defvjp(_attn_fwd, _attn_bwd)

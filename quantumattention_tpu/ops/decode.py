@@ -1,321 +1,329 @@
-"""Fused GQA decode attention over a ragged (quantized) KV cache.
+"""GQA decode attention over a ragged (quantized) KV cache.
 
 The reference has no decode path at all — its kernels are prefill-only
-(SURVEY.md §0: "no KV cache or decode path").  This kernel is the TPU
-build's north-star extension (BASELINE.md config: FP8/int8 KV-cache decode at
-Llama-3-8B shapes).
+(SURVEY.md §0: "no KV cache or decode path").  This is the serving hot
+path: one new token (or T verification candidates) per sequence against a
+cache of ``max_len`` rows of which only ``lengths[b]`` are live.
 
-Shape model (one new token per sequence):
-  q:        (B, Hq, D)       current-step queries
-  k_cache:  (B, Hkv, Smax, D)  ragged cache, only lengths[b] rows valid
+Shape model:
+  q:        (B, Hq, D) current-step queries, or (B, Hq, T, D) for T
+            speculative candidates per slot
+  k_cache:  (B, Hkv, Smax, D) ragged cache, only lengths[b] rows valid
+            (minor dim D/2: the packed-int4 container)
   v_cache:  (B, Hkv, Smax, D)
   k_scale/v_scale: (B, Hkv, Smax) fp32 token-wise dequant scales when the
-  cache is 8-bit (int8 container preferred: 2x MXU rate on v5e+, and the
-  DMA halving is the real win — decode is bandwidth-bound).
+            cache is 8-bit
   lengths:  (B,) int32 valid lengths (entries may be 0 for empty slots)
 
-TPU mapping (this kernel is DMA-bound at the HBM roof — ~0.87 ms/step at
-B=64/S=4096 8B shapes, ~700 GB/s ≈ 88% of v5e peak, the same speed as a
-no-compute DMA floor over the same blocks; all timing via 256-step chained
-scans, see bench.py's ~33 ms-roundtrip note):
-  * grid (B/bb, Smax/block_kv, Hkv) — a BLOCK of ``bb`` batch rows per
-    step (batched MXU dots), heads INNERMOST so the all-heads scale block
-    (forced by Mosaic's block-shape rules) is fetched once per (b, j) and
-    elided across the head sweep;
-  * the GQA group (G = Hq/Hkv queries sharing one KV head) forms the
-    matmul M dim — the "commute sum and matmul" trick: one (G, D) x
-    (D, bkv) MXU op serves all queries of the group;
-  * lengths live in SMEM via PrefetchScalarGridSpec so fully-invalid KV
-    blocks are skipped before their DMA is issued;
-  * online softmax in fp32, exp2 domain, identical math to the prefill
-    kernel (reference merge operator tk/attention.py:274-313), carried in
-    h-indexed scratch because the KV loop is outside the head sweep.
+Two implementations of the same semantics:
+
+  * ``_decode_kernel`` — Pallas through Triton, split over KV
+    (flash-decoding): grid ``(B, Hkv, splits)``; each program reads its
+    slot's length and loops only over the live KV tiles of its split, so
+    the int8 cache is read in proportion to live length.  The GQA group
+    (x candidate tokens) is the dot's M dimension.  A second pass in XLA
+    merges the splits' online-softmax states.
+  * ``decode_attention_plain`` — XLA over all ``Smax`` rows, with the
+    token-wise scales applied to the score and probability tiles so the
+    int8 -> bf16 convert is the dot's only prologue.
+
+Both apply the same online-softmax merge operator as the prefill kernel
+(reference tk/attention.py:274-313), in the exp2 domain.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .. import config
 from ..utils import checks
 from . import quant as quant_ops
-from ..utils.shapes import round_up
 
 LOG2E = math.log2(math.e)
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
-NUM_LANES = 128
+
+#: KV rows per loop step of the decode kernel.
+DECODE_BLOCK_KV = 128
+
+#: Programs to keep in flight: eight per SM of a 132-SM Hopper card (on
+#: an H200 at B=64, S=4096 this ran 0.439 ms against 0.466 ms for four per
+#: SM at full length, 0.336 against 0.357 ms at half).
+TARGET_PROGRAMS = 8 * 132
 
 
-def _decode_kernel(
-    # scalar prefetch
-    lengths_ref,
-    # inputs
-    *refs,
-    quantized: bool,
-    sm_scale: float,
-    block_kv: int,
-    group_pad: int,
-    block_batch: int,
-    int8_qk: bool = False,
-    int8_pv: bool = False,
-    int4: bool = False,
-    q_tokens: int = 1,
-    window_left: Optional[int] = None,
-):
-    if quantized:
-        q_ref, k_ref, v_ref, ks_ref, vs_ref, o_ref = refs[:6]
-        m_scr, l_scr, acc_scr = refs[6:]
+class _DecodeSpec(NamedTuple):
+    quantized: bool
+    sm_scale: float
+    block_kv: int
+    split_len: int
+    q_tokens: int
+    window_left: Optional[int]
+
+
+def _decode_kernel(*refs, spec: _DecodeSpec):
+    if spec.quantized:
+        len_ref, q_ref, k_ref, v_ref, ks_ref, vs_ref, acc_ref, m_ref, l_ref = refs
     else:
-        q_ref, k_ref, v_ref, o_ref = refs[:4]
-        m_scr, l_scr, acc_scr = refs[4:]
+        len_ref, q_ref, k_ref, v_ref, acc_ref, m_ref, l_ref = refs
+    bkv, t_count = spec.block_kv, spec.q_tokens
+    split = pl.program_id(2)
+    length = len_ref[...]
+    start = split * spec.split_len
+    end = jnp.minimum(start + spec.split_len, length)
+    if spec.window_left is not None:
+        # The lowest column any candidate keeps is length - T - left.
+        start = jnp.maximum(start, length - t_count - spec.window_left)
+    lo = lax.div(jnp.maximum(start, 0), bkv)
+    hi = lax.div(jnp.maximum(end, 0) + bkv - 1, bkv)
 
-    b = pl.program_id(0)
-    if window_left is not None:
-        # Window mode swaps the inner grid dims (j innermost): skipped
-        # below-window steps then sit CONSECUTIVELY on the same clamped
-        # block index, which is what lets Mosaic elide their re-fetch —
-        # with heads innermost the repeats would be 8 steps apart and
-        # every skipped step would still stream a block.
-        h = pl.program_id(1)
-        j = pl.program_id(2)
-        num_kv_blocks = pl.num_programs(2)
-    else:
-        j = pl.program_id(1)
-        h = pl.program_id(2)
-        num_kv_blocks = pl.num_programs(1)
-    bb = block_batch
+    q = q_ref[...].astype(jnp.bfloat16)  # (Mp, D)
+    m_rows = q.shape[0]
+    # Rows pack (group, token) pairs token-fastest; candidate t must not
+    # see candidates t+1..T-1, so its columns shift by T - 1 - t.
+    shift = (t_count - 1) - lax.broadcasted_iota(
+        jnp.int32, (m_rows, bkv), 0
+    ) % t_count
+    base = spec.sm_scale * LOG2E
 
-    # Per-row valid lengths of this batch block (SMEM scalars, static loop).
-    lens = [lengths_ref[b * bb + i] for i in range(bb)]
-    max_len = lens[0]
-    min_len = lens[0]
-    for ln in lens[1:]:
-        max_len = jnp.maximum(max_len, ln)
-        min_len = jnp.minimum(min_len, ln)
-
-    @pl.when(j == 0)
-    def _init():
-        m_scr[h] = jnp.full_like(m_scr[h], -jnp.inf)
-        l_scr[h] = jnp.zeros_like(l_scr[h])
-        acc_scr[h] = jnp.zeros_like(acc_scr[h])
-
-    run_block = j * block_kv < max_len
-    if window_left is not None:
-        # Skip KV blocks entirely BELOW every row's window: the lowest
-        # column any (row, token) pair keeps is lens - q_tokens -
-        # window_left (t = 0), so a block whose end is at or below the
-        # minimum over the batch block contributes nothing.  Combined with
-        # the clamped index map in the host wrapper (skipped steps re-
-        # reference the first in-window block, so Mosaic elides their
-        # fetch), a window model streams ~window bytes per step instead of
-        # the whole cache.
-        run_block = jnp.logical_and(
-            run_block,
-            (j + 1) * block_kv > min_len - q_tokens - window_left,
-        )
-
-    # Split-halves int4 unpack = ops/quant.unpack_int4 (the canonical
-    # inverse of dynamically_quantize_int4; pure jnp, Pallas-safe).
-    # Measured variants (v5e, window-controlled): this concat unpack
-    # 1.17 ms vs int8's 0.87 ms at B=64/S=4096 8B shapes; splitting the
-    # dots per half (no concat) was WORSE (1.4-1.7 ms — the int8->int32
-    # astype is the real relayout, and half-dots double the MXU issue
-    # count); native jnp.int4 arrays crash the runtime.  int4 is
-    # therefore a CAPACITY feature on v5e (half the cache residency),
-    # not a latency win.
-    _unpack4 = quant_ops.unpack_int4
-
-    @pl.when(run_block)
-    def _run():
-        q = q_ref[:, 0]  # (bb, group_pad, D) float
-        k = k_ref[:, 0]  # (bb, block_kv, D) — or (bb, block_kv, D/2) packed
-        if int4:
-            k = _unpack4(k, jnp.int8 if int8_qk else jnp.bfloat16)
-        if int8_qk:
-            # Quantize Q per row (tiny: bb x G x D) and multiply on the
-            # int8 MXU directly against the int8 cache block.  This
-            # replaces the K upcast — a VPU convert over the whole
-            # (bb, block_kv, D) cache block EVERY step, the dominant
-            # non-DMA cost of this bandwidth-bound kernel — with a
-            # convert over the (bb, G, block_kv) score tile (D-fold
-            # smaller).  Q's per-row scale folds into the exp2-domain
-            # softmax scale below.
-            qf = q.astype(jnp.float32)
-            qs = (
-                jnp.maximum(
-                    jnp.max(jnp.abs(qf), axis=-1, keepdims=True), 1e-9
-                )
-                / 127.0
-            )  # (bb, G, 1)
-            q8 = jnp.round(qf * (1.0 / qs)).astype(jnp.int8)
-            s_i = jax.lax.dot_general(
-                q8, k, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.int32,
-            )
-            s = s_i.astype(jnp.float32) * (qs * (sm_scale * LOG2E))
-        else:
-            kc = (
-                k.astype(jnp.bfloat16)
-                if checks.is_8bit_dtype(k.dtype)
-                else k
-            )
-            s = jax.lax.dot_general(
-                q, kc, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # (bb, group_pad, block_kv)
-            s = s * (sm_scale * LOG2E)
-        if quantized:
-            # This head's row of the resident all-heads scale block.
-            s = s * ks_ref[:, h, :][:, None, :]
-
-        # Ragged tail mask, one scalar compare per batch row (building a
-        # (bb,) vector from SMEM scalars is layout-hostile; bb static
-        # slices are cheap).  With q_tokens = T > 1 (speculative-decoding
-        # verification) the M dim packs (group, token) pairs t-fastest and
-        # each token t only sees cache rows < lens - (T - 1 - t): lens
-        # includes all T appended candidates, and candidate t must not
-        # attend to candidates t+1..T-1 (intra-chunk causality).
-        col = (
-            jax.lax.broadcasted_iota(
-                jnp.int32, (group_pad, block_kv), 1
-            )
-            + j * block_kv
-        )
-        if q_tokens > 1:
-            t_of_row = (
-                jax.lax.broadcasted_iota(
-                    jnp.int32, (group_pad, block_kv), 0
-                )
-                % q_tokens
-            )
-            col = col + (q_tokens - 1 - t_of_row)
-
-        def _keep(i):
-            ok = col < lens[i]
-            if window_left is not None:
-                # Sliding window: query at position p = lens-T+t may only
-                # see cols >= p - left; with the token-adjusted col this is
-                # col >= lens - 1 - left for every t uniformly.
-                ok = jnp.logical_and(ok, col >= lens[i] - 1 - window_left)
-            return ok
-
-        s = jnp.stack(
-            [
-                jnp.where(_keep(i), s[i], MASK_VALUE)
-                for i in range(bb)
-            ],
-            axis=0,
-        )
-
-        m_prev = m_scr[h]
-        l_prev = l_scr[h]
-        m_curr = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
+    def body(j, carry):
+        acc, m_prev, l_prev = carry
+        kv_slice = pl.ds(j * bkv, bkv)
+        k = k_ref[kv_slice, :].astype(jnp.bfloat16)
+        s = lax.dot_general(
+            q, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
+        ) * base
+        if spec.quantized:
+            s = s * ks_ref[kv_slice][None, :]
+        col = j * bkv + lax.broadcasted_iota(jnp.int32, (m_rows, bkv), 1) + shift
+        keep = col < length
+        if spec.window_left is not None:
+            keep &= col >= length - 1 - spec.window_left
+        s = jnp.where(keep, s, MASK_VALUE)
+        m_next = jnp.maximum(m_prev, jnp.max(s, axis=1))
         alpha = jnp.exp2(m_prev - m_next)
-        p = jnp.exp2(s - m_next[:, :, :1])
-        l_scr[h] = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-        m_scr[h] = m_next
-
-        v = v_ref[:, 0]  # (bb, block_kv, D) — or (bb, block_kv, D/2) packed
-        if int4:
-            v = _unpack4(v, jnp.int8 if int8_pv else jnp.bfloat16)
-
-        def _pv_dot(p_mat, half_dtype, acc_dtype):
-            vc = v if v.dtype == half_dtype else v.astype(half_dtype)
-            return jax.lax.dot_general(
-                p_mat, vc, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=acc_dtype,
-            )
-
-        if quantized and int8_pv and v.dtype == jnp.int8:
-            # Consume the int8 V block DIRECTLY on the int8 MXU: fold the
-            # token-wise V scale into P (it commutes through the KV sum),
-            # quantize the (bb, G, bkv) P tile per row, and dequantize the
-            # (bb, G, D) product — the int8->bf16 upcast over the whole
-            # (bb, bkv, D) cache block (the dominant per-step VPU cost of
-            # this bandwidth-bound kernel) disappears entirely.
-            p_eff = p * vs_ref[:, h, :][:, None, :]
-            ps = (
-                jnp.maximum(
-                    jnp.max(jnp.abs(p_eff), axis=-1, keepdims=True), 1e-9
-                )
-                / 127.0
-            )  # (bb, G, 1)
-            p8 = jnp.round(p_eff * (1.0 / ps)).astype(jnp.int8)
-            pv_i = _pv_dot(p8, jnp.int8, jnp.int32)
-            pv = pv_i.astype(jnp.float32) * ps
-        else:
-            if quantized:
-                # The token-wise V scale commutes through the KV sum —
-                # apply it to P's columns (already (bb, G, bkv)) instead of
-                # V's rows, avoiding a lane->sublane relayout.
-                p_eff = (p * vs_ref[:, h, :][:, None, :]).astype(jnp.bfloat16)
-            else:
-                p_eff = p.astype(
-                    jnp.bfloat16 if checks.is_8bit_dtype(v.dtype) else v.dtype
-                )
-            pv = _pv_dot(
-                p_eff, p_eff.dtype, jnp.float32
-            )  # (bb, group_pad, D)
-        acc_scr[h] = acc_scr[h] * alpha[:, :, :1] + pv
-
-    @pl.when(j == num_kv_blocks - 1)
-    def _epilogue():
-        l = l_scr[h][:, :, :1]
-        l_inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-        o = acc_scr[h] * l_inv
-        # Zero-length rows still execute when a sibling in the batch block
-        # has valid KV (the skip predicate is per block, not per row); their
-        # all-masked tiles degenerate to exp2(MASK-MASK)=1 -> mean(V).
-        # Defined output for empty rows is exact zeros.
-        o = jnp.stack(
-            [jnp.where(lens[i] > 0, o[i], 0.0) for i in range(bb)], axis=0
+        p = jnp.exp2(s - m_next[:, None])
+        l_next = alpha * l_prev + jnp.sum(p, axis=1)
+        if spec.quantized:
+            # The token-wise V scale commutes through the KV sum: apply it
+            # to P's columns instead of V's rows.
+            p = p * vs_ref[kv_slice][None, :]
+        v = v_ref[kv_slice, :].astype(jnp.bfloat16)
+        pv = lax.dot_general(
+            p.astype(jnp.bfloat16), v, (((1,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32,
         )
-        o_ref[:, 0] = o.astype(o_ref.dtype)
+        return acc * alpha[:, None] + pv, m_next, l_next
+
+    head_dim = q.shape[1]
+    acc, m_i, l_i = lax.fori_loop(
+        lo, hi, body,
+        (
+            jnp.zeros((m_rows, head_dim), jnp.float32),
+            jnp.full((m_rows,), -jnp.inf, jnp.float32),
+            jnp.zeros((m_rows,), jnp.float32),
+        ),
+    )
+    acc_ref[...] = acc
+    m_ref[...] = m_i
+    l_ref[...] = l_i
 
 
-def _pick_block_batch(batch: int, block_kv: int, head_dim: int,
-                      kv_itemsize: int) -> int:
-    """Largest batch block that divides B and keeps double-buffered K/V
-    blocks + scales within a conservative VMEM slice.
-
-    Candidates up to 64: at SHORT caches (serving at max_len <= 1k the
-    whole cache is one KV block) a bigger batch block means fewer grid
-    steps with bigger per-step DMAs — at S=512/B=64 the per-call stream
-    measured only ~335 GB/s at bb=8.  Long caches keep bb=8 (the VMEM
-    budget rejects larger; at the HBM roof bb changes measured within
-    noise, CLAUDE.md)."""
-    budget = 40 * 1024 * 1024
-    for bb in (64, 32, 16, 8, 4, 2, 1):
-        if batch % bb != 0:
-            continue
-        kv_bytes = 2 * 2 * bb * block_kv * head_dim * kv_itemsize
-        scale_bytes = 2 * 2 * bb * 8 * block_kv * 4  # all-heads fp32 rows
-        if kv_bytes + scale_bytes <= budget:
-            return bb
-    return 1
+def _num_splits(batch: int, kv_heads: int, s_max: int, block_kv: int) -> int:
+    """Splits of the KV axis so that B * Hkv * splits programs fill the
+    card, each with at least one KV tile."""
+    splits = 1
+    while (
+        batch * kv_heads * splits < TARGET_PROGRAMS
+        and s_max // (2 * splits) >= block_kv
+    ):
+        splits *= 2
+    return splits
 
 
-def _auto_window_block_kv(window_left: int) -> int:
-    """Smallest power-of-two KV block (512..4096) covering the window
-    extent: one in-window block plus at most one partial neighbor, while
-    512+ keeps the per-grid-step overhead amortized (bkv=512 measured
-    slower than 1024 at window=1023).  Powers of two ONLY: a 512-multiple
-    like 1536 (window=1024) rarely divides s_max, and a non-dividing block
-    makes decode_attention's s_pad branch jnp.pad the ENTIRE cache every
-    decode step — a full-cache copy that dwarfs the kernel and negates the
-    window's fetch-elision win."""
-    for cand in (512, 1024, 2048):
-        if window_left + 1 <= cand:
-            return cand
-    return 4096
+def decode_tiling(batch: int, kv_heads: int, s_max: int,
+                  block_kv: Optional[int] = None) -> Tuple[int, int, int]:
+    """(block_kv, splits, split_len) of the decode kernel: power-of-two
+    tiles, and splits whose extents tile ``s_max`` (no padding of the
+    cache when ``s_max`` is a multiple of ``block_kv * splits``)."""
+    bkv = block_kv or DECODE_BLOCK_KV
+    if bkv < 16 or bkv & (bkv - 1):
+        raise ValueError(f"block_kv must be a power of two >= 16, got {bkv}")
+    bkv = min(bkv, max(16, pl.next_power_of_2(s_max)))
+    splits = _num_splits(batch, kv_heads, s_max, bkv)
+    split_len = -(-s_max // (splits * bkv)) * bkv
+    return bkv, splits, split_len
+
+
+def decode_stages(m_pad: int, block_kv: int, head_dim: int,
+                  kv_bytes: int) -> int:
+    """Deepest K/V pipeline (3, 2 or 1 stages) the shared-memory fit model
+    admits; raises when the tile cannot run at all."""
+    from .. import autotune
+
+    for stages in (3, 2, 1):
+        if autotune.smem_fits(m_pad, block_kv, head_dim, 2, kv_bytes, stages):
+            return stages
+    raise ValueError(
+        f"decode tile block_kv={block_kv} at head_dim {head_dim} exceeds one "
+        f"block's shared memory ({autotune.SMEM_BYTES} bytes)"
+    )
+
+
+def _decode_kernel_call(qg, k_cache, v_cache, lengths, k_scale, v_scale, *,
+                        sm_scale, q_tokens, window_left, block_kv, interpret):
+    batch, num_kv_heads, m_pad, head_dim = qg.shape
+    s_max = k_cache.shape[2]
+    bkv, splits, split_len = decode_tiling(batch, num_kv_heads, s_max, block_kv)
+    stages = decode_stages(m_pad, bkv, head_dim, k_cache.dtype.itemsize)
+    s_pad = split_len * splits
+    quantized = k_scale is not None
+    if s_pad != s_max:
+        pad4 = [(0, 0), (0, 0), (0, s_pad - s_max), (0, 0)]
+        k_cache = jnp.pad(k_cache, pad4)
+        v_cache = jnp.pad(v_cache, pad4)
+        if quantized:
+            pad3 = [(0, 0), (0, 0), (0, s_pad - s_max)]
+            k_scale = jnp.pad(k_scale, pad3)
+            v_scale = jnp.pad(v_scale, pad3)
+
+    in_specs = [
+        pl.BlockSpec((None,), lambda b, h, s: (b,)),
+        pl.BlockSpec((None, None, m_pad, head_dim), lambda b, h, s: (b, h, 0, 0)),
+        pl.BlockSpec((None, None, s_pad, head_dim), lambda b, h, s: (b, h, 0, 0)),
+        pl.BlockSpec((None, None, s_pad, head_dim), lambda b, h, s: (b, h, 0, 0)),
+    ]
+    args = [lengths.astype(jnp.int32), qg, k_cache, v_cache]
+    if quantized:
+        scale_spec = pl.BlockSpec((None, None, s_pad), lambda b, h, s: (b, h, 0))
+        in_specs += [scale_spec, scale_spec]
+        args += [k_scale.astype(jnp.float32), v_scale.astype(jnp.float32)]
+    part = (splits, batch, num_kv_heads, m_pad)
+    spec = _DecodeSpec(
+        quantized=quantized,
+        sm_scale=float(sm_scale),
+        block_kv=bkv,
+        split_len=split_len,
+        q_tokens=q_tokens,
+        window_left=window_left,
+    )
+    acc, m, l = pl.pallas_call(
+        functools.partial(_decode_kernel, spec=spec),
+        grid=(batch, num_kv_heads, splits),
+        in_specs=in_specs,
+        out_specs=[
+            pl.BlockSpec((None, None, None, m_pad, head_dim),
+                         lambda b, h, s: (s, b, h, 0, 0)),
+            pl.BlockSpec((None, None, None, m_pad), lambda b, h, s: (s, b, h, 0)),
+            pl.BlockSpec((None, None, None, m_pad), lambda b, h, s: (s, b, h, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct(part + (head_dim,), jnp.float32),
+            jax.ShapeDtypeStruct(part, jnp.float32),
+            jax.ShapeDtypeStruct(part, jnp.float32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=stages),
+        interpret=interpret,
+        name="qa_decode_split",
+    )(*args)
+    # Merge the splits' online-softmax states; splits that saw no live row
+    # carry m = -inf and weigh zero.
+    m_tot = jnp.max(m, axis=0)
+    w = jnp.where(m == -jnp.inf, 0.0, jnp.exp2(m - m_tot[None]))
+    l_tot = jnp.sum(w * l, axis=0)
+    o = jnp.sum(w[..., None] * acc, axis=0)
+    o = o * jnp.where(l_tot == 0.0, 0.0, 1.0 / l_tot)[..., None]
+    return o
+
+
+def decode_attention_plain(
+    q: jax.Array,
+    k_cache: jax.Array,
+    v_cache: jax.Array,
+    lengths: jax.Array,
+    *,
+    k_scale: Optional[jax.Array] = None,
+    v_scale: Optional[jax.Array] = None,
+    sm_scale: Optional[float] = None,
+    window: Optional[Tuple[Optional[int], Optional[int]]] = None,
+) -> jax.Array:
+    """XLA decode attention with the same contract as
+    :func:`decode_attention`: reads all ``Smax`` rows of every slot."""
+    qg, dims = _group_queries(q, k_cache)
+    batch, num_kv_heads, q_tokens, head_dim, m_rows = dims
+    k_cache, v_cache = _unpacked(q, k_cache, v_cache)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(head_dim)
+    window_left = _window_left(window)
+    s = jnp.einsum(
+        "bkmd,bksd->bkms", qg.astype(jnp.bfloat16),
+        k_cache.astype(jnp.bfloat16), preferred_element_type=jnp.float32,
+    ) * (sm_scale * LOG2E)
+    if k_scale is not None:
+        s = s * k_scale.astype(jnp.float32)[:, :, None, :]
+    s_max = k_cache.shape[2]
+    col = jnp.arange(s_max)[None, :] + (
+        (q_tokens - 1) - jnp.arange(m_rows)[:, None] % q_tokens
+    )
+    lens = lengths.astype(jnp.int32)[:, None, None, None]
+    keep = col[None, None] < lens
+    if window_left is not None:
+        keep &= col[None, None] >= lens - 1 - window_left
+    s = jnp.where(keep, s, MASK_VALUE)
+    m = jnp.max(s, axis=-1, keepdims=True)
+    p = jnp.exp2(s - m)
+    l = jnp.sum(p, axis=-1, keepdims=True)
+    if v_scale is not None:
+        p = p * v_scale.astype(jnp.float32)[:, :, None, :]
+    o = jnp.einsum(
+        "bkms,bksd->bkmd", p.astype(jnp.bfloat16),
+        v_cache.astype(jnp.bfloat16), preferred_element_type=jnp.float32,
+    ) / l
+    o = jnp.where(lens > 0, o, 0.0)
+    return o.astype(jnp.bfloat16).reshape(q.shape)
+
+
+def _group_queries(q, k_cache):
+    if q.ndim == 4:
+        batch, num_q_heads, q_tokens, head_dim = q.shape
+    else:
+        batch, num_q_heads, head_dim = q.shape
+        q_tokens = 1
+    num_kv_heads = k_cache.shape[1]
+    if num_q_heads % num_kv_heads != 0:
+        raise ValueError("num_q_heads must be divisible by num_kv_heads")
+    m_rows = (num_q_heads // num_kv_heads) * q_tokens
+    # (group, T) rows pack token-fastest.
+    qg = q.reshape(batch, num_kv_heads, m_rows, head_dim)
+    return qg, (batch, num_kv_heads, q_tokens, head_dim, m_rows)
+
+
+def _unpacked(q, k_cache, v_cache):
+    """Unpack a packed-int4 cache (minor dim head_dim/2) to int8 values."""
+    if k_cache.shape[-1] * 2 == q.shape[-1]:
+        return (quant_ops.unpack_int4(k_cache, jnp.int8),
+                quant_ops.unpack_int4(v_cache, jnp.int8))
+    return k_cache, v_cache
+
+
+def _window_left(window) -> Optional[int]:
+    if window is None:
+        return None
+    left, right = window
+    if right not in (None, 0):
+        raise ValueError(
+            "decode_attention window must be (left, 0) or (left, None): "
+            f"queries are the newest tokens, got right={right}"
+        )
+    return None if left is None else int(left)
 
 
 def decode_attention(
@@ -332,46 +340,26 @@ def decode_attention(
     window: Optional[Tuple[Optional[int], Optional[int]]] = None,
     interpret: Optional[bool] = None,
 ) -> jax.Array:
-    """Single-step GQA decode attention; returns (B, Hq, D) in bf16.
+    """Single-step GQA decode attention; returns q's shape in bf16.
+
+    ``block_kv`` is the kernel's KV tile (a power of two, default
+    ``DECODE_BLOCK_KV``).  ``block_batch`` must divide the batch; the
+    kernel runs one slot per program whatever its value.
 
     ``k_scale``/``v_scale`` must both be given iff the cache is 8-bit
     token-wise quantized (shape (B, Hkv, Smax) fp32).  A cache with minor
     dim ``head_dim // 2`` is the packed-int4 container
-    (``ops/quant.dynamically_quantize_int4``) — same scale shapes, halved
-    HBM stream, unpacked in-kernel (two shifts + a minor concat).
+    (``ops/quant.dynamically_quantize_int4``), unpacked by XLA.
 
-    ``block_kv`` defaults to the largest measured-good block (4096; v5e
-    sweep at Llama-3-8B shapes — fewer, larger blocks amortize per-step
-    overhead in this bandwidth-bound kernel).  With a sliding ``window``
-    the default instead TRACKS the window: fetch elision works at block
-    granularity, so a window smaller than the block still streams the
-    whole block (measured v5e, S=8192/window=1023 full-batch int8:
-    bkv=4096 0.50 ms vs window-matched bkv=1024 0.34 ms vs full-cache
-    0.86 ms — benchmarks/window_block_sweep.py).  ``block_batch`` groups
-    that many batch rows per grid step (batched MXU dots, ~bb-fold fewer
-    grid steps); default picks the largest divisor of B that fits VMEM.
+    4-D ``q`` = (B, Hq, T, D): T candidate tokens per slot (speculative
+    verification); ``lengths`` must already INCLUDE the T appended
+    candidates, and token t attends to everything before the candidates
+    plus candidates 0..t (intra-chunk causal).  A sliding ``window`` is
+    (left, 0) or (left, None).
     """
-    if block_kv is None:
-        if window is not None and window[0] is not None:
-            block_kv = _auto_window_block_kv(int(window[0]))
-        else:
-            block_kv = 4096
-    # 4-D q = (B, Hq, T, D): T candidate tokens per slot (speculative-
-    # decoding verification).  lengths must already INCLUDE the T appended
-    # candidates; token t attends to everything before the candidates plus
-    # candidates 0..t (intra-chunk causal).
-    if q.ndim == 4:
-        batch, num_q_heads, q_tokens, head_dim = q.shape
-    else:
-        batch, num_q_heads, head_dim = q.shape
-        q_tokens = 1
-    _, num_kv_heads, s_max, cache_dim = k_cache.shape
-    if num_q_heads % num_kv_heads != 0:
-        raise ValueError("num_q_heads must be divisible by num_kv_heads")
-    # A cache whose minor dim is half the head dim is the packed-int4
-    # container (ops/quant.dynamically_quantize_int4): two 4-bit values
-    # per int8 byte, unpacked in-kernel.  Decode is DMA-bound at the HBM
-    # roof, so halving the stream is the remaining throughput lever.
+    qg, dims = _group_queries(q, k_cache)
+    batch, num_kv_heads, q_tokens, head_dim, m_rows = dims
+    cache_dim = k_cache.shape[-1]
     int4 = cache_dim * 2 == head_dim
     if int4 and k_cache.dtype != jnp.int8:
         raise ValueError(
@@ -388,7 +376,6 @@ def decode_attention(
             "decode_attention expects float queries (the cache may be "
             "8-bit, but q has no dequant-scale path)"
         )
-    group = num_q_heads // num_kv_heads
     quantized = k_scale is not None
     if quantized != (v_scale is not None):
         raise ValueError("k_scale and v_scale must be given together")
@@ -396,170 +383,21 @@ def decode_attention(
         raise ValueError("8-bit KV cache requires k_scale/v_scale")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
-    window_left = None
-    if window is not None:
-        window_left, right = window
-        if right not in (None, 0):
-            raise ValueError(
-                "decode_attention window must be (left, 0) or (left, "
-                f"None): queries are the newest tokens, got right={right}"
-            )
-        if window_left is not None:
-            window_left = int(window_left)
-    if interpret is None:
-        interpret = checks.resolve_interpret(config.interpret)
-
-    block_kv = min(block_kv, round_up(s_max, 128))
-    s_pad = round_up(s_max, block_kv)
-    if s_pad != s_max:
-        pad4 = [(0, 0), (0, 0), (0, s_pad - s_max), (0, 0)]
-        k_cache = jnp.pad(k_cache, pad4)
-        v_cache = jnp.pad(v_cache, pad4)
-        if quantized:
-            pad3 = [(0, 0), (0, 0), (0, s_pad - s_max)]
-            k_scale = jnp.pad(k_scale, pad3)
-            v_scale = jnp.pad(v_scale, pad3)
-
-    if block_batch is None:
-        block_batch = _pick_block_batch(
-            batch, block_kv, cache_dim, k_cache.dtype.itemsize
-        )
-    if batch % block_batch != 0:
+    window_left = _window_left(window)
+    if block_batch is not None and batch % block_batch != 0:
         raise ValueError(
             f"block_batch ({block_batch}) must divide batch ({batch})"
         )
-    bb = block_batch
+    if interpret is None:
+        interpret = checks.resolve_interpret(config.interpret)
+    k_cache, v_cache = _unpacked(q, k_cache, v_cache)
 
-    # The GQA group (x candidate tokens) is the matmul M dim; pad to the
-    # fp32 sublane width.  (group, T) rows pack t-fastest, matching the
-    # kernel's `row % T` intra-chunk causal mask.
-    m_rows = group * q_tokens
-    group_pad = max(8, round_up(m_rows, 8))
-    if q_tokens > 1:
-        qg = q.reshape(batch, num_kv_heads, group, q_tokens, head_dim)
-        qg = qg.reshape(batch, num_kv_heads, m_rows, head_dim)
-    else:
-        qg = q.reshape(batch, num_kv_heads, m_rows, head_dim)
-    if group_pad != m_rows:
-        qg = jnp.pad(qg, [(0, 0), (0, 0), (0, group_pad - m_rows), (0, 0)])
-
-    if window_left is None:
-        grid = (batch // bb, s_pad // block_kv, num_kv_heads)
-
-        in_specs = [
-            pl.BlockSpec(
-                (bb, 1, group_pad, head_dim), lambda b, j, h, *_: (b, h, 0, 0)
-            ),
-            pl.BlockSpec(
-                (bb, 1, block_kv, cache_dim), lambda b, j, h, *_: (b, h, j, 0)
-            ),
-            pl.BlockSpec(
-                (bb, 1, block_kv, cache_dim), lambda b, j, h, *_: (b, h, j, 0)
-            ),
-        ]
-        out_index = lambda b, j, h, *_: (b, h, 0, 0)
-        scale_index = lambda b, j, h, *_: (b, 0, j)
-    else:
-        # Window mode: j INNERMOST (see the kernel's program_id note) and
-        # the KV index clamped to the first in-window block — below-window
-        # steps then repeat the same index consecutively, so their fetch
-        # is elided and a window model streams ~window bytes per step
-        # instead of the whole cache.  (DMA-elision benefit needs compiled
-        # TPU validation; correctness holds either way — skipped steps'
-        # compute is off and the mask covers partial blocks.)
-        grid = (batch // bb, num_kv_heads, s_pad // block_kv)
-
-        def _lo_block(b, lens_ref):
-            mn = lens_ref[b * bb]
-            for i in range(1, bb):
-                mn = jnp.minimum(mn, lens_ref[b * bb + i])
-            return jnp.maximum(
-                (mn - q_tokens - window_left) // block_kv, 0
-            )
-
-        def kv_index(b, h, j, lens_ref):
-            return (b, h, jnp.maximum(j, _lo_block(b, lens_ref)), 0)
-
-        in_specs = [
-            pl.BlockSpec(
-                (bb, 1, group_pad, head_dim), lambda b, h, j, *_: (b, h, 0, 0)
-            ),
-            pl.BlockSpec((bb, 1, block_kv, cache_dim), kv_index),
-            pl.BlockSpec((bb, 1, block_kv, cache_dim), kv_index),
-        ]
-        out_index = lambda b, h, j, *_: (b, h, 0, 0)
-
-        def scale_index(b, h, j, lens_ref):
-            return (b, 0, jnp.maximum(j, _lo_block(b, lens_ref)))
-
-    args = [qg, k_cache, v_cache]
-    if quantized:
-        # The scale block must span all heads (Mosaic sublane rule), but
-        # its index is h-independent — with heads innermost in the grid it
-        # is fetched once per (b, j) and elided across the head sweep
-        # (window mode instead clamps it with the KV blocks).
-        scale_spec = pl.BlockSpec(
-            (bb, num_kv_heads, block_kv), scale_index
-        )
-        in_specs += [scale_spec, scale_spec]
-        args += [k_scale.astype(jnp.float32), v_scale.astype(jnp.float32)]
-
-    kernel = functools.partial(
-        _decode_kernel,
-        quantized=quantized,
-        sm_scale=float(sm_scale),
-        block_kv=block_kv,
-        group_pad=group_pad,
-        block_batch=bb,
-        int8_qk=(
-            k_cache.dtype == jnp.int8
-            and quantized
-            and config.attention.decode_int8_qk
-        ),
-        int8_pv=(
-            v_cache.dtype == jnp.int8
-            and quantized
-            and config.attention.decode_int8_pv
-        ),
-        int4=int4,
-        q_tokens=q_tokens,
-        window_left=window_left,
+    m_pad = max(16, pl.next_power_of_2(m_rows))
+    if m_pad != m_rows:
+        qg = jnp.pad(qg, [(0, 0), (0, 0), (0, m_pad - m_rows), (0, 0)])
+    o = _decode_kernel_call(
+        qg, k_cache, v_cache, lengths, k_scale, v_scale,
+        sm_scale=sm_scale, q_tokens=q_tokens, window_left=window_left,
+        block_kv=block_kv, interpret=interpret,
     )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((bb, 1, group_pad, head_dim), out_index),
-        scratch_shapes=[
-            # Per-head online-softmax state: the j loop is OUTSIDE the head
-            # sweep, so all heads' accumulators live simultaneously.
-            pltpu.VMEM((num_kv_heads, bb, group_pad, NUM_LANES), jnp.float32),
-            pltpu.VMEM((num_kv_heads, bb, group_pad, NUM_LANES), jnp.float32),
-            pltpu.VMEM((num_kv_heads, bb, group_pad, head_dim), jnp.float32),
-        ],
-    )
-
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (batch, num_kv_heads, group_pad, head_dim), jnp.bfloat16
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-            vmem_limit_bytes=(
-                64 * 1024 * 1024 if checks.tpu_generation() >= 5 else None
-            ),
-        ),
-        interpret=interpret,
-    )(lengths.astype(jnp.int32), *args)
-
-    out = out[:, :, :m_rows, :]
-    if q_tokens > 1:
-        out = out.reshape(
-            batch, num_kv_heads, group, q_tokens, head_dim
-        ).reshape(batch, num_q_heads, q_tokens, head_dim)
-    else:
-        out = out.reshape(batch, num_q_heads, head_dim)
-    return out
+    return o[:, :, :m_rows].astype(jnp.bfloat16).reshape(q.shape)

@@ -1,359 +1,39 @@
-"""Paged decode attention: non-contiguous KV pages gathered by async DMA.
+"""Paged decode attention: KV in a pool of fixed-size pages.
 
 The serving engine's contiguous slot cache (ops/decode.py) reserves
 max_len per slot; the paged layout removes that: KV lives in a global pool
-of fixed-size pages and each sequence owns an arbitrary page list.  This is
-the TPU build's equivalent of vLLM-style paged attention (absent from the
-reference, which has no decode path at all — SURVEY.md §0).
+of fixed-size pages and each sequence owns an arbitrary page list — the
+vLLM-style layout (absent from the reference, which has no decode path at
+all — SURVEY.md §0).
 
-TPU mapping (modeled on the production JAX TPU paged kernel pattern):
-  * pages stay in HBM (``memory_space=ANY``); the kernel gathers the pages
-    of one compute block with one ``pltpu.make_async_copy`` per page — all
-    started concurrently, so latency is that of the slowest page;
-  * double buffering (VMEM scratch leading dim 2 + SMEM buffer index)
-    overlaps the next block's page DMAs with compute on the current block;
-  * page indices + sequence lengths are scalar-prefetched
-    (``PrefetchScalarGridSpec``) so DMAs for out-of-range blocks are never
-    issued and the next (b, h, block) triple is computable in-kernel;
-  * int8 pages with per-token scales halve DMA bandwidth — decode is
-    bandwidth-bound, so this is the FP8-KV-cache win the BASELINE targets.
+Each sequence's pages are gathered through its page table into a
+contiguous cache (plain XLA), then the same decode attention as the slots
+backend runs over it (``ops/decode.decode_attention``).
 """
 
 from __future__ import annotations
 
-import functools
-import math
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .. import config
 from ..utils import checks
-from ..utils.shapes import cdiv
 from . import quant as quant_ops
-
-LOG2E = math.log2(math.e)
-MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
-NUM_LANES = 128
+from .decode import MASK_VALUE, decode_attention  # noqa: F401 (MASK_VALUE: side-mask fill)
 
 
-class _PageGather:
-    """One compute block's worth of page DMAs (started together)."""
-
-    def __init__(
-        self,
-        pages_hbm_ref,
-        vmem_buf,
-        sem,
-        page_idx_ref,
-        seq_idx,
-        block_idx,
-        pages_per_block,
-        head_idx,
-    ):
-        self._copies = []
-        for i in range(pages_per_block):
-            page = page_idx_ref[seq_idx, block_idx * pages_per_block + i]
-            self._copies.append(
-                pltpu.make_async_copy(
-                    pages_hbm_ref.at[head_idx, page],
-                    vmem_buf.at[i],
-                    sem,
-                )
-            )
-
-    def start(self):
-        for c in self._copies:
-            c.start()
-
-    def wait(self):
-        for c in self._copies:
-            c.wait()
-
-
-def _paged_kernel(
-    # scalar prefetch
-    lengths_ref,
-    page_idx_ref,
-    # inputs
-    q_ref,
-    k_pages_hbm,
-    v_pages_hbm,
-    ks_pages_hbm,
-    vs_pages_hbm,
-    # [sk, sv, sks, svs, smask] when has_side, then outputs, then scratch
-    *refs,
-    quantized: bool,
-    sm_scale: float,
-    pages_per_block: int,
-    page_size: int,
-    group_pad: int,
-    batch: int,
-    num_kv_heads: int,
-    max_blocks: int,
-    pipelined: bool,
-    window_left: Optional[int] = None,
-    int4: bool = False,
-    q_tokens: int = 1,
-    scale_fold: bool = False,
-    has_side: bool = False,
-):
-    refs = list(refs)
-    if has_side:
-        # Burst side buffer: this burst's appended tokens.  VMEM blocks
-        # per (b, h): sk/sv (1, 1, Tpad, D) in the page container dtype,
-        # sks/svs (1, 1, 1, Tpad) f32 per-token scales (dummy when the
-        # pages are unquantized), smask (1, 1, Tpad) f32 additive
-        # validity {0, MASK}.  The head index rides the BlockSpec index
-        # map, so no in-kernel dynamic head indexing is needed.
-        sk_ref, sv_ref, sks_ref, svs_ref, smask_ref = refs[:5]
-        refs = refs[5:]
-    (
-        o_ref,
-        k_buf,
-        v_buf,
-        ks_buf,
-        vs_buf,
-        k_sems,
-        v_sems,
-        buf_idx_ref,
-        m_scr,
-        l_scr,
-        acc_scr,
-    ) = refs
-    b = pl.program_id(0)
-    h = pl.program_id(1)
-    i = pl.program_id(2)
-    block_tokens = pages_per_block * page_size
-
-    length = lengths_ref[b]
-    num_valid_blocks = jnp.maximum(1, pl.cdiv(length, block_tokens))
-
-    def gather(slot, seq, head, blk):
-        copies = [
-            _PageGather(
-                k_pages_hbm, k_buf.at[slot], k_sems.at[slot, 0],
-                page_idx_ref, seq, blk, pages_per_block, head,
-            ),
-            _PageGather(
-                v_pages_hbm, v_buf.at[slot], v_sems.at[slot, 0],
-                page_idx_ref, seq, blk, pages_per_block, head,
-            ),
-        ]
-        if quantized:
-            copies += [
-                _PageGather(
-                    ks_pages_hbm, ks_buf.at[slot], k_sems.at[slot, 1],
-                    page_idx_ref, seq, blk, pages_per_block, head,
-                ),
-                _PageGather(
-                    vs_pages_hbm, vs_buf.at[slot], v_sems.at[slot, 1],
-                    page_idx_ref, seq, blk, pages_per_block, head,
-                ),
-            ]
-        return copies
-
-    def start_all(slot, seq, head, blk):
-        for c in gather(slot, seq, head, blk):
-            c.start()
-
-    def wait_all(slot, seq, head, blk):
-        for c in gather(slot, seq, head, blk):
-            c.wait()
-
-    # --- next-block computation (for cross-step prefetch) ---
-    def next_triple(b, h, i):
-        nblk = jnp.maximum(
-            1, pl.cdiv(lengths_ref[b], block_tokens)
-        )
-        last_in_seq = i + 1 >= nblk
-        nh = jnp.where(last_in_seq, h + 1, h)
-        ni = jnp.where(last_in_seq, 0, i + 1)
-        wrap_h = nh >= num_kv_heads
-        nb = jnp.where(wrap_h, b + 1, b)
-        nh = jnp.where(wrap_h, 0, nh)
-        return nb, nh, ni
-
-    is_active = i < num_valid_blocks
-
-    @pl.when(is_active)
-    def _run():
-        if pipelined:
-            # First grid step overall: prime the pipeline.
-            first = jnp.logical_and(
-                jnp.logical_and(b == 0, h == 0), i == 0
-            )
-
-            @pl.when(first)
-            def _():
-                buf_idx_ref[0] = 0
-                start_all(0, b, h, i)
-
-            slot = buf_idx_ref[0]
-
-            # Prefetch the next active block into the other buffer.
-            nb, nh, ni = next_triple(b, h, i)
-
-            @pl.when(nb < batch)
-            def _():
-                start_all(1 - slot, nb, nh, ni)
-                buf_idx_ref[0] = 1 - slot
-
-            wait_all(slot, b, h, i)
-        else:
-            # Interpret mode: no overlap to win, and the interpreter's
-            # process-global semaphore state makes cross-step pipelines
-            # order-sensitive across pallas_call invocations — gather
-            # synchronously instead.
-            slot = 0
-            start_all(0, b, h, i)
-            wait_all(0, b, h, i)
-
-        @pl.when(i == 0)
-        def _init():
-            m_scr[:] = jnp.full_like(m_scr, -jnp.inf)
-            l_scr[:] = jnp.zeros_like(l_scr)
-            acc_scr[:] = jnp.zeros_like(acc_scr)
-
-        q = q_ref[0, 0]  # (group_pad, D)
-
-        # Dequantize in the page-native (ppb, ps, D) layout — the per-token
-        # scale broadcasts over the lane (D) dim, avoiding a lane->sublane
-        # shape cast — then merge the sublane dims for the matmul.
-        # int4 pages pack two tokens per byte along the page's token axis
-        # (split-halves; serving/paged_cache.init_layer_pages), so the
-        # buffer holds (ppb, ps/2, D) and unpacks on the sublane axis —
-        # the 128-lane head_dim minor survives for the page DMA.
-        def load(buf, scale_buf):
-            x = buf[slot]
-            if int4:
-                x = quant_ops.unpack_int4(x, jnp.int8, axis=1)
-            if quantized:
-                sc = scale_buf[slot]
-                if scale_fold:
-                    # Folded (ppb, ps/128, 128) scales: split the page's
-                    # token axis to match, broadcast, re-merge.
-                    ppb, s1, _ = sc.shape
-                    xs = x.reshape(ppb, s1, 128, x.shape[-1])
-                    x = (
-                        xs.astype(jnp.float32) * sc[..., None]
-                    ).astype(jnp.bfloat16)
-                else:
-                    x = (
-                        x.astype(jnp.float32) * sc[..., None]
-                    ).astype(jnp.bfloat16)
-            return x.reshape(block_tokens, -1)
-
-        k = load(k_buf, ks_buf)
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        s = s * (sm_scale * LOG2E)
-
-        col = (
-            jax.lax.broadcasted_iota(jnp.int32, s.shape, 1)
-            + i * block_tokens
-        )
-        if q_tokens > 1:
-            # Multi-query verification (speculative decoding): the M dim
-            # packs (group, token) pairs t-fastest and ``length`` already
-            # INCLUDES the T appended candidates; candidate t must not see
-            # candidates t+1..T-1, i.e. col + (T-1-t) < length — same
-            # intra-chunk causal mask as ops/decode._decode_kernel.
-            t_of_row = (
-                jax.lax.broadcasted_iota(jnp.int32, s.shape, 0) % q_tokens
-            )
-            col = col + (q_tokens - 1 - t_of_row)
-        keep = col < length
-        if window_left is not None:
-            # Sliding window: query t sits at position length-T+t and may
-            # only see cols >= p - left; with the token-adjusted col this
-            # is col >= length - 1 - left uniformly over t.
-            keep = jnp.logical_and(keep, col >= length - 1 - window_left)
-        s = jnp.where(keep, s, MASK_VALUE)
-
-        m_prev = m_scr[:]
-        l_prev = l_scr[:]
-        m_curr = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        alpha = jnp.exp2(m_prev - m_next)
-        p = jnp.exp2(s - m_next[:, :1])
-        l_scr[:] = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-        m_scr[:] = m_next
-
-        vf = load(v_buf, vs_buf)
-        pv = jax.lax.dot_general(
-            p.astype(jnp.bfloat16), vf,
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        acc_scr[:] = acc_scr[:] * alpha[:, :1] + pv
-
-    if has_side:
-        # One more online-softmax block over the burst's side-buffer
-        # tokens, merged after the LAST cache block (the cache pages stay
-        # untouched for the whole burst — the scatter-through-pallas copy
-        # trap, ops/megastep.py module docstring).  Scales multiply the
-        # SCORES per key column (megastep convention) — equivalent to
-        # dequantizing K/V since the scales are per token.
-        @pl.when(i == num_valid_blocks - 1)
-        def _side():
-            q = q_ref[0, 0]  # (group_pad, D)
-            sk = sk_ref[0, 0].astype(jnp.bfloat16)  # (Tpad, D)
-            s2 = jax.lax.dot_general(
-                q, sk, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            ) * (sm_scale * LOG2E)
-            if quantized:
-                s2 = s2 * sks_ref[0, 0]  # (1, Tpad) broadcast
-            s2 = s2 + smask_ref[0]  # (1, Tpad) additive validity
-            m_prev = m_scr[:]
-            l_prev = l_scr[:]
-            m_curr = jnp.max(s2, axis=-1, keepdims=True)
-            m_next = jnp.maximum(m_prev, m_curr)
-            alpha = jnp.exp2(m_prev - m_next)
-            p2 = jnp.exp2(s2 - m_next[:, :1])
-            l_scr[:] = alpha * l_prev + jnp.sum(p2, axis=-1, keepdims=True)
-            m_scr[:] = m_next
-            if quantized:
-                p2 = p2 * svs_ref[0, 0]
-            sv = sv_ref[0, 0].astype(jnp.bfloat16)
-            pv2 = jax.lax.dot_general(
-                p2.astype(jnp.bfloat16), sv, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            acc_scr[:] = acc_scr[:] * alpha[:, :1] + pv2
-
-    @pl.when(i == num_valid_blocks - 1)
-    def _epilogue():
-        l = l_scr[:, :1]
-        l_inv = jnp.where(l == 0.0, 0.0, 1.0 / l)
-        o = acc_scr[:] * l_inv
-        # Zero-length sequences still execute block 0 (the prefetch chain
-        # must stay unbroken), where the all-masked tile degenerates to
-        # exp(MASK-MASK)=1 everywhere; squash the bogus mean-of-V here so
-        # empty slots return exact zeros like the gather/decode paths.
-        o = jnp.where(length > 0, o, 0.0)
-        o_ref[0, 0] = o.astype(o_ref.dtype)
-
-
-def _gathered_reference(
+def _gather_and_attend(
     q, k_pages, v_pages, lengths, page_indices, *,
     k_scale_pages, v_scale_pages, sm_scale, interpret, window=None,
     int4=False, side=None,
 ):
     """Materialize each sequence's pages contiguously, then run the ragged
-    decode kernel — the semantic definition of the DMA kernel.  With a
-    ``side`` buffer the side tokens are spliced in after each sequence's
-    cache prefix (side-valid columns are a PREFIX of the buffer by the
-    burst contract, so they map to consecutive rows at ``lengths[b]``)
-    and the effective lengths grow by the per-slot valid side count."""
-    from .decode import decode_attention
-
+    decode attention.  With a ``side`` buffer the side tokens are spliced
+    in after each sequence's cache prefix (side-valid columns are a PREFIX
+    of the buffer by the burst contract, so they map to consecutive rows
+    at ``lengths[b]``) and the effective lengths grow by the per-slot
+    valid side count.  Slots with an empty cache prefix return zeros."""
     if int4:
         # Unpack the token-packed pages to int4-range int8 values first so
         # the per-page split-halves order becomes natural token order; the
@@ -402,7 +82,13 @@ def _gathered_reference(
             ks = dus3(ks, side["ks"].astype(ks.dtype), lengths)
             vs = dus3(vs, side["vs"].astype(vs.dtype), lengths)
         n_side = jnp.sum(side["mask"] == 0.0, axis=-1).astype(jnp.int32)
-        lengths = lengths + n_side
+        out = decode_attention(
+            q, k_seq, v_seq, lengths + n_side,
+            k_scale=ks, v_scale=vs, sm_scale=sm_scale, window=window,
+            interpret=interpret,
+        )
+        empty = (lengths == 0).reshape((-1,) + (1,) * (out.ndim - 1))
+        return jnp.where(empty, jnp.zeros_like(out), out)
     return decode_attention(
         q, k_seq, v_seq, lengths,
         k_scale=ks, v_scale=vs, sm_scale=sm_scale, window=window,
@@ -420,10 +106,8 @@ def paged_decode_attention(
     k_scale_pages: Optional[jax.Array] = None,
     v_scale_pages: Optional[jax.Array] = None,
     sm_scale: Optional[float] = None,
-    pages_per_block: int = 4,
     window: Optional[Tuple[Optional[int], Optional[int]]] = None,
     interpret: Optional[bool] = None,
-    use_dma: Optional[bool] = None,
     side: Optional[dict] = None,
 ) -> jax.Array:
     """Decode attention over paged KV; returns (B, Hq, D) bf16.
@@ -441,12 +125,10 @@ def paged_decode_attention(
       k_scale_pages/v_scale_pages: per-token fp32 scales for 8-bit
         pages — (Hkv, num_pages, page_size), or the folded
         (Hkv, num_pages, page_size/128, 128) layout for pages wider than
-        128 tokens (serving/paged_cache.scale_shape; a >128-wide 1-D
-        per-page DMA slice trips Mosaic tiling — probe_scale_dma.py).
+        128 tokens (serving/paged_cache.scale_shape).
       side: optional burst side buffer — this burst's appended tokens,
         attended AFTER each sequence's cache prefix so the page pool can
-        stay scan-invariant for a whole decode burst (the
-        scatter-through-pallas silent-copy trap, ops/megastep.py):
+        stay scan-invariant for a whole decode burst:
         {"k"/"v": (B, Hkv, Tpad, D) in the page container dtype,
         "ks"/"vs": (B, Hkv, Tpad) f32 per-token scales (required iff the
         pages are quantized), "mask": (B, Tpad) f32 additive validity
@@ -462,10 +144,8 @@ def paged_decode_attention(
         batch, num_q_heads, head_dim = q.shape
         q_tokens = 1
     num_kv_heads, _, page_rows, _ = k_pages.shape
-    pages_per_seq = page_indices.shape[1]
     if num_q_heads % num_kv_heads != 0:
         raise ValueError("num_q_heads must be divisible by num_kv_heads")
-    group = num_q_heads // num_kv_heads
     quantized = k_scale_pages is not None
     if quantized != (v_scale_pages is not None):
         raise ValueError("k_scale_pages and v_scale_pages go together")
@@ -507,32 +187,17 @@ def paged_decode_attention(
             )
     if int4 and k_pages.dtype != jnp.int8:
         raise ValueError("int4 pages must use an int8 container")
-    scale_fold = quantized and k_scale_pages.ndim == 4
-    page_size = scale_rows if int4 else page_rows
-    if pages_per_seq % pages_per_block != 0:
+    if window is not None and window[1] not in (None, 0):
         raise ValueError(
-            f"pages_per_seq ({pages_per_seq}) must be a multiple of "
-            f"pages_per_block ({pages_per_block})"
+            "paged_decode_attention window must be (left, 0) or (left, None): "
+            f"queries are the newest tokens, got right={window[1]}"
         )
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(head_dim)
-    window_left = None
-    if window is not None:
-        window_left, right = window
-        if right not in (None, 0):
-            raise ValueError(
-                "paged_decode_attention window must be (left, 0) or "
-                f"(left, None): queries are the newest tokens, got "
-                f"right={right}"
-            )
-        if window_left is not None:
-            window_left = int(window_left)
     if side is not None:
         if q_tokens != 1:
             raise ValueError("side buffer requires single-token queries")
         if int4:
             raise ValueError("side buffer unsupported with int4 pages")
-        if window_left is not None:
+        if window is not None and window[0] is not None:
             raise ValueError("side buffer unsupported with sliding window")
         sb, shkv, tpad, sd = side["k"].shape
         if (sb, shkv, sd) != (batch, num_kv_heads, head_dim) or tpad % 8:
@@ -544,186 +209,9 @@ def paged_decode_attention(
             raise ValueError(
                 "side scales must be present iff the pages are quantized"
             )
-    if interpret is None:
-        interpret = checks.resolve_interpret(config.interpret)
-    if use_dma is None:
-        # The interpreter's DMA semantics are unreliable when several DMA
-        # kernels execute inside one program; route interpret mode through
-        # a jnp gather + the ragged decode kernel (identical semantics).
-        # Per-page DMA slices also need Mosaic-tileable shapes: a
-        # 128-aligned minor dim (head_dim for KV pages; page_size for the
-        # 1-D scale pages) and an 8/32-aligned second-to-minor (page_size).
-        # Misaligned configs take the gather path, which materializes each
-        # sequence's full padded KV per call — correct but O(B*S_max)
-        # traffic, so prefer page_size=128 and head_dim % 128 == 0 in
-        # production.
-        use_dma = (
-            not interpret
-            and head_dim % 128 == 0
-            and page_rows % 32 == 0
-            and (not quantized or page_size % 128 == 0)
-        )
-    if not use_dma:
-        return _gathered_reference(
-            q, k_pages, v_pages, lengths, page_indices,
-            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
-            sm_scale=sm_scale, window=window, interpret=interpret,
-            int4=int4, side=side,
-        )
-
-    # The GQA group (x candidate tokens) is the matmul M dim; pad to the
-    # fp32 sublane width.  (group, T) rows pack t-fastest, matching the
-    # kernel's `row % T` intra-chunk causal mask.
-    m_rows = group * q_tokens
-    group_pad = max(8, cdiv(m_rows, 8) * 8)
-    qg = q.reshape(batch, num_kv_heads, m_rows, head_dim)
-    if group_pad != m_rows:
-        qg = jnp.pad(qg, [(0, 0), (0, 0), (0, group_pad - m_rows), (0, 0)])
-
-    max_blocks = pages_per_seq // pages_per_block
-    grid = (batch, num_kv_heads, max_blocks)
-
-    kernel = functools.partial(
-        _paged_kernel,
-        quantized=quantized,
-        sm_scale=float(sm_scale),
-        pages_per_block=pages_per_block,
-        page_size=page_size,
-        group_pad=group_pad,
-        batch=batch,
-        num_kv_heads=num_kv_heads,
-        max_blocks=max_blocks,
-        pipelined=not interpret,
-        window_left=window_left,
-        int4=int4,
-        q_tokens=q_tokens,
-        scale_fold=scale_fold,
-        has_side=side is not None,
+    return _gather_and_attend(
+        q, k_pages, v_pages, lengths, page_indices,
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
+        sm_scale=sm_scale, window=window, interpret=interpret,
+        int4=int4, side=side,
     )
-
-    any_spec = pl.BlockSpec(memory_space=pl.ANY)
-    in_specs = [
-        pl.BlockSpec(
-            (1, 1, group_pad, head_dim), lambda b, h, i, *_: (b, h, 0, 0)
-        ),
-        any_spec,  # k_pages
-        any_spec,  # v_pages
-        any_spec,  # k_scale_pages (dummy when not quantized)
-        any_spec,  # v_scale_pages
-    ]
-    side_args = []
-    if side is not None:
-        tpad = side["k"].shape[2]
-        # Per-(b, h) VMEM blocks; the head index rides the BlockSpec map
-        # (no in-kernel dynamic head indexing).  Scales reshape to
-        # (B, Hkv, 1, Tpad) and the mask to (B, 1, Tpad) so every block's
-        # second-to-last dim equals its array dim (Mosaic's 8-divisible
-        # sublane-block rule — ops/megastep.py's all-heads note).
-        in_specs += [
-            pl.BlockSpec(
-                (1, 1, tpad, head_dim), lambda b, h, i, *_: (b, h, 0, 0)
-            ),
-            pl.BlockSpec(
-                (1, 1, tpad, head_dim), lambda b, h, i, *_: (b, h, 0, 0)
-            ),
-        ]
-        if quantized:
-            sks4 = side["ks"].astype(jnp.float32)[:, :, None, :]
-            svs4 = side["vs"].astype(jnp.float32)[:, :, None, :]
-            in_specs += [
-                pl.BlockSpec(
-                    (1, 1, 1, tpad), lambda b, h, i, *_: (b, h, 0, 0)
-                ),
-                pl.BlockSpec(
-                    (1, 1, 1, tpad), lambda b, h, i, *_: (b, h, 0, 0)
-                ),
-            ]
-        else:
-            sks4 = jnp.zeros((1, 1, 1, 1), jnp.float32)
-            svs4 = jnp.zeros((1, 1, 1, 1), jnp.float32)
-            in_specs += [
-                pl.BlockSpec(
-                    (1, 1, 1, 1), lambda b, h, i, *_: (0, 0, 0, 0)
-                ),
-                pl.BlockSpec(
-                    (1, 1, 1, 1), lambda b, h, i, *_: (0, 0, 0, 0)
-                ),
-            ]
-        in_specs.append(
-            pl.BlockSpec((1, 1, tpad), lambda b, h, i, *_: (b, 0, 0))
-        )
-        side_args = [
-            side["k"], side["v"], sks4, svs4,
-            side["mask"].astype(jnp.float32)[:, None, :],
-        ]
-
-    if quantized:
-        ksp, vsp = k_scale_pages.astype(jnp.float32), v_scale_pages.astype(
-            jnp.float32
-        )
-    else:
-        ksp = jnp.zeros((1, 1, 1), jnp.float32)
-        vsp = jnp.zeros((1, 1, 1), jnp.float32)
-
-    # Per-page scale slab shape in VMEM mirrors the HBM layout (the DMA
-    # copies one page's slab verbatim).
-    if not quantized:
-        scale_buf_shape = (2, 1, 1)
-    elif scale_fold:
-        scale_buf_shape = (
-            2, pages_per_block, ksp.shape[2], ksp.shape[3]
-        )
-    else:
-        scale_buf_shape = (2, pages_per_block, page_size)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (1, 1, group_pad, head_dim), lambda b, h, i, *_: (b, h, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM(
-                (2, pages_per_block, page_rows, head_dim), k_pages.dtype
-            ),
-            pltpu.VMEM(
-                (2, pages_per_block, page_rows, head_dim), v_pages.dtype
-            ),
-            pltpu.VMEM(scale_buf_shape, jnp.float32),
-            pltpu.VMEM(scale_buf_shape, jnp.float32),
-            pltpu.SemaphoreType.DMA((2, 2)),
-            pltpu.SemaphoreType.DMA((2, 2)),
-            pltpu.SMEM((1,), jnp.int32),
-            pltpu.VMEM((group_pad, NUM_LANES), jnp.float32),
-            pltpu.VMEM((group_pad, NUM_LANES), jnp.float32),
-            pltpu.VMEM((group_pad, head_dim), jnp.float32),
-        ],
-    )
-
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (batch, num_kv_heads, group_pad, head_dim), jnp.bfloat16
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(
-        lengths.astype(jnp.int32),
-        page_indices.astype(jnp.int32),
-        qg,
-        k_pages,
-        v_pages,
-        ksp,
-        vsp,
-        *side_args,
-    )
-    out = out[:, :, :m_rows, :]
-    if q_tokens > 1:
-        return out.reshape(
-            batch, num_kv_heads, group, q_tokens, head_dim
-        ).reshape(batch, num_q_heads, q_tokens, head_dim)
-    return out.reshape(batch, num_q_heads, head_dim)

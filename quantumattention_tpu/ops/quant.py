@@ -11,10 +11,9 @@ Granularities (reference nn.py:410-418):
   * head-wise:  reduce over [-2, -1]  -> scale shape (B, H)
   * token-wise: reduce over [-1]      -> scale shape (B, H, S)
 
-This module adds an int8 variant with identical structure: on TPU v5e/v6e the
-MXU runs 8-bit matmuls at 2x the bf16 rate, so int8 (not fp8) is the
-throughput-optimal 8-bit container; fp8 e4m3 remains the storage/parity
-format.  Everything is pure jnp so XLA fuses the quantization into
+This module adds an int8 variant with identical structure (the KV-cache and
+weight container); fp8 e4m3 is the attention container, fed to the fp8
+tensor cores on Hopper.  Everything is pure jnp so XLA fuses the quantization into
 surrounding computation (the analogue of the reference compiling the
 quantizer with Inductor, nn.py:22-42).
 """
@@ -69,7 +68,7 @@ def dynamically_quantize_fp8(
 def dynamically_quantize_int8(
     t: jax.Array, *, reduction_dim: _Dims = -1
 ) -> Tuple[jax.Array, jax.Array]:
-    """Quantize to int8 with dynamic scales (TPU 8-bit MXU container)."""
+    """Quantize to int8 with dynamic scales."""
     return _dynamic_quantize(t, reduction_dim, INT8_MAX, jnp.int8)
 
 

@@ -28,6 +28,10 @@ import jax.numpy as jnp
 #: produce NaNs through exp(-inf - (-inf)).
 DEFAULT_MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 
+#: float32 products at full precision: on the GPU the default precision
+#: runs them in TF32, which keeps about three decimal digits.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def _dequantize(t: jax.Array, scale: Optional[jax.Array], target_dtype) -> jax.Array:
     """Cast ``t`` to ``target_dtype``, multiplying by broadcast scales.
@@ -71,7 +75,7 @@ def sdpa_reference(
     ``window`` is ``(left, right)`` sliding-window extents: query position i
     may attend to kv position j when ``i - left <= j <= i + right`` (use
     ``None`` for an unbounded side).  The reference has no sliding window;
-    this is part of the TPU build's extended capability (SURVEY.md section 7).
+    this is part of this build's extended capability (SURVEY.md section 7).
     """
     if out_dtype is None:
         out_dtype = value.dtype
@@ -93,7 +97,7 @@ def sdpa_reference(
         v = jnp.repeat(v, rep, axis=1)
 
     sm_scale = 1.0 / math.sqrt(head_dim) if scale is None else scale
-    logits = jnp.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    logits = jnp.einsum("bhqd,bhkd->bhqk", q, k, precision=_HIGHEST) * sm_scale
 
     mask = None
 
@@ -137,5 +141,45 @@ def sdpa_reference(
         keep = jax.random.bernoulli(dropout_key, 1.0 - dropout_p, weights.shape)
         weights = jnp.where(keep, weights / (1.0 - dropout_p), 0.0)
 
-    out = jnp.einsum("bhqk,bhkd->bhqd", weights, v)
+    out = jnp.einsum("bhqk,bhkd->bhqd", weights, v, precision=_HIGHEST)
     return out.astype(out_dtype)
+
+
+def sdpa_per_head(
+    query: jax.Array,
+    key: jax.Array,
+    value: jax.Array,
+    *,
+    is_causal: bool = False,
+    scale: Optional[float] = None,
+    window: Optional[tuple] = None,
+    out_dtype=None,
+) -> jax.Array:
+    """:func:`sdpa_reference` computed one (batch, query head) at a time.
+
+    ``lax.map`` over B*Hq keeps one head's (Sq, Skv) fp32 logits live
+    (268 MB at S = 8192) instead of all of them, and each head is
+    rematerialised in the backward pass, so the VJP of this function is
+    the plain attention backward in O(S^2) memory per head only.
+    """
+    if out_dtype is None:
+        out_dtype = value.dtype
+    batch, num_q_heads, q_len, head_dim = query.shape
+    _, num_kv_heads, kv_len, _ = key.shape
+    group = num_q_heads // num_kv_heads
+    n = jnp.arange(batch * num_q_heads)
+    kv_index = (n // num_q_heads) * num_kv_heads + (n % num_q_heads) // group
+    k2 = key.reshape(batch * num_kv_heads, 1, 1, kv_len, head_dim)
+    v2 = value.reshape(batch * num_kv_heads, 1, 1, kv_len, head_dim)
+    q2 = query.reshape(batch * num_q_heads, 1, 1, q_len, head_dim)
+
+    @jax.checkpoint
+    def one(xs):
+        q_i, kv_i = xs
+        return sdpa_reference(
+            q_i, k2[kv_i], v2[kv_i], is_causal=is_causal, scale=scale,
+            window=window, out_dtype=out_dtype,
+        )
+
+    out = jax.lax.map(one, (q2, kv_index))
+    return out.reshape(batch, num_q_heads, q_len, head_dim)

@@ -2,7 +2,7 @@
 
 The reference is single-GPU with no MoE or expert-parallel story
 (SURVEY.md §2.3 marks EP "not in scope" for parity); this module closes
-the completeness gap with the idiomatic TPU formulation (GShard §3.2):
+the completeness gap with the GShard formulation (§3.2):
 
   * tokens are sharded over the ``ep`` mesh axis (batch dim), experts are
     sharded over the same axis (leading E dim of the stacked weights);

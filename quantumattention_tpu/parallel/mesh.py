@@ -1,10 +1,12 @@
 """Device-mesh sharding for the model layer.
 
 The reference is strictly single-GPU (SURVEY.md §2.3: zero distributed code).
-This module supplies the TPU-native scale-out story: a named
-``jax.sharding.Mesh`` plus PartitionSpecs per parameter, and XLA/GSPMD
-inserts the collectives (all-gather for row-sharded matmuls, reduce-scatter /
-psum for col-sharded ones) over ICI.
+This module supplies the scale-out story: a named ``jax.sharding.Mesh``
+plus PartitionSpecs per parameter, and XLA/GSPMD inserts the collectives
+(all-gather for row-sharded matmuls, reduce-scatter / psum for col-sharded
+ones), which XLA hands to NCCL.  The cards of one host are joined all to
+all by NVLink, so the mesh follows the algorithm alone: no axis order is
+faster than another.
 
 Axes:
   * ``dp`` — data parallel: batch dim of activations.

@@ -1,10 +1,10 @@
-"""Multi-host bootstrap and pod-slice mesh construction.
+"""Multi-process bootstrap and global mesh construction.
 
-The reference has no multi-device story; this is the TPU build's DCN-scale
-entry point: ``jax.distributed.initialize`` (the JAX-native replacement for
-the NCCL/MPI world the reference never had), plus helpers to lay mesh axes
-out so the fast-changing axes ride ICI within a host/slice and only the
-slowest axis (dp) crosses DCN — the scaling-book layout rule.
+The reference has no multi-device story; this is the multi-process entry
+point: ``jax.distributed.initialize`` (the JAX-native replacement for the
+NCCL/MPI world the reference never had), plus a helper that lays mesh axes
+out over every device of the job.  Within one host the cards are joined
+all to all by NVLink; only the slowest axis (dp) should cross hosts.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ def initialize_distributed(
 ) -> None:
     """Bring up the JAX distributed runtime (no-op if single-process).
 
-    On Cloud TPU pods the arguments are auto-detected from the metadata
-    server; elsewhere pass them explicitly or via JAX_COORDINATOR_ADDRESS /
+    Pass the arguments explicitly (``localhost:<port>`` for processes on
+    one host) or via JAX_COORDINATOR_ADDRESS /
     JAX_NUM_PROCESSES / JAX_PROCESS_ID (jax reads the coordinator address
     itself but not the process id, so it is read here).
     """
@@ -48,7 +48,7 @@ def initialize_distributed(
     ):
         return  # no distributed configuration present at all
     # None values are passed through so jax's cluster auto-detection
-    # (Cloud TPU metadata, SLURM, ...) can fill them in.
+    # (SLURM, ...) can fill them in.
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -64,10 +64,10 @@ def pod_mesh(
 ) -> Mesh:
     """Global mesh over every device in the job.
 
-    Axis order is slowest-varying first: **dp outermost** (may cross DCN —
-    only gradient/step-level collectives), then sp (ring neighbors stay
-    ICI-adjacent), then **tp innermost** (per-layer collectives ride the
-    fastest links).  ``tp=None`` absorbs the remaining devices.
+    Axis order is slowest-varying first: **dp outermost** (the only axis
+    that may cross hosts — gradient/step-level collectives), then sp, then
+    **tp innermost** (per-layer collectives stay within a host's NVLink
+    domain).  ``tp=None`` absorbs the remaining devices.
     """
     n = jax.device_count()
     if tp is None:

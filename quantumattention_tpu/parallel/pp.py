@@ -2,21 +2,20 @@
 
 The reference is single-GPU and has no pipeline story (SURVEY.md §2.3 marks
 PP "not in scope" for parity); this module closes the gap with a minimal but
-real TPU-native implementation: stages are laid out along a ``pp`` mesh
-axis, activations flow stage-to-stage with ``jax.lax.ppermute`` over ICI,
+real implementation: stages are laid out along a ``pp`` mesh axis,
+activations flow stage-to-stage with ``jax.lax.ppermute``,
 and microbatches stream through the classic fill/steady/drain schedule
 (n_micro + n_stages - 1 ticks).
 
-Design notes (idiomatic-TPU choices, not a translation of any GPU runtime):
+Design notes:
   * stage parameters are a STACKED pytree — every leaf carries a leading
     ``n_stages`` axis and is sharded ``P("pp")`` so each device holds
     exactly its stage's slice (homogeneous stages, e.g. transformer
     blocks);
   * the whole schedule is one ``lax.scan`` inside ``shard_map`` — XLA sees
-    a static loop of compute + ppermute pairs and overlaps the ICI
-    transfer of tick t with the compute of tick t+1 (latency-hiding
-    scheduler), which is the TPU-native replacement for hand-rolled
-    send/recv queues;
+    a static loop of compute + ppermute pairs and overlaps the transfer
+    of tick t with the compute of tick t+1 (latency-hiding scheduler)
+    instead of hand-rolled send/recv queues;
   * bubbles are the standard GPipe fill/drain ticks: utilization is
     n_micro / (n_micro + n_stages - 1) — callers pick the microbatch count
     accordingly.

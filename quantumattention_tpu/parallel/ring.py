@@ -1,8 +1,8 @@
 """Ring sequence-parallel attention over a mesh axis.
 
 The reference has no cross-device story at all (SURVEY.md §2.3); this module
-is the TPU build's long-context scale-out. KV shards rotate around the mesh
-axis with ``jax.lax.ppermute`` (point-to-point over ICI) while each chip runs
+is the long-context scale-out. KV shards rotate around the mesh axis with
+``jax.lax.ppermute`` (point-to-point over NVLink) while each card runs
 the fused flash kernel on the shard currently in front of it; partial
 (out, m, l) triples merge with the same online-softmax rescale math the
 kernel uses between KV tiles (reference merge operator:
@@ -30,9 +30,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from .. import config
 from ..ops.flash import flash_attention
 
-#: The kernel's online-softmax stats are lane-replicated over 128 lanes.
-NUM_LANES = 128
-
 
 def _merge_unnormalized(u, m, l, o_t, m_t, l_t):
     """Fold one ring step's normalized partial (o_t, m_t, l_t) into the
@@ -53,9 +50,11 @@ def _merge_unnormalized(u, m, l, o_t, m_t, l_t):
     """
     exp = jnp.exp2 if config.kernel.use_exp2 else jnp.exp
     m_new = jnp.maximum(m, m_t)
-    a = exp(m - m_new)
-    b = exp(m_t - m_new)
-    u_new = u * a[..., :1] + o_t.astype(jnp.float32) * (l_t * b)[..., :1]
+    # A side that has seen no key yet carries m = -inf and weighs zero
+    # (also when both do: -inf - -inf would be NaN).
+    a = jnp.where(m == -jnp.inf, 0.0, exp(m - m_new))
+    b = jnp.where(m_t == -jnp.inf, 0.0, exp(m_t - m_new))
+    u_new = u * a[..., None] + o_t.astype(jnp.float32) * (l_t * b)[..., None]
     l_new = l * a + l_t * b
     return u_new, m_new, l_new
 
@@ -136,8 +135,8 @@ def _ring_body(
 
     batch, heads, _, head_dim = q.shape
     u0 = jnp.zeros((batch, heads, q_len, head_dim), jnp.float32)
-    m0 = jnp.full((batch, heads, q_len, NUM_LANES), -jnp.inf, jnp.float32)
-    l0 = jnp.zeros((batch, heads, q_len, NUM_LANES), jnp.float32)
+    m0 = jnp.full((batch, heads, q_len), -jnp.inf, jnp.float32)
+    l0 = jnp.zeros((batch, heads, q_len), jnp.float32)
     sk0 = scale_k if tokenwise else jnp.zeros((), jnp.float32)
 
     # No unroll: compile time stays flat in the ring size (an unrolled
@@ -145,7 +144,7 @@ def _ring_body(
     (u, _, l, _, _, _), _ = jax.lax.scan(
         step, (u0, m0, l0, k, v, sk0), jnp.arange(n)
     )
-    l_lead = l[..., :1]
+    l_lead = l[..., None]
     o = u * jnp.where(l_lead == 0.0, 0.0, 1.0 / l_lead)
     # Match flash_attention's output contract: 8-bit value dtypes promote
     # to bf16 (casting the merged fp32 result to fp8 would silently

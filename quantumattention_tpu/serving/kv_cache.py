@@ -1,7 +1,7 @@
 """Quantized ragged KV cache for decode serving.
 
-The reference has no KV-cache subsystem (SURVEY.md §0); this is part of the
-TPU build's serving extension.  The cache is a plain pytree of device arrays
+The reference has no KV-cache subsystem (SURVEY.md §0); this is part of
+this build's serving extension.  The cache is a plain pytree of device arrays
 with static shapes (jit-stable slot-based layout — continuous batching
 rotates requests through fixed slots rather than reshaping):
 
@@ -11,13 +11,12 @@ rotates requests through fixed slots rather than reshaping):
 
 Token-wise quantization (reduction over D) matches the engine's token-wise
 scale granularity (reference nn.py:415-418); int8 is the default container
-on TPU (2x MXU rate, half the HBM traffic — decode is bandwidth-bound).
+(half the HBM traffic of bf16 — decode is bandwidth-bound).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Tuple
 
 import jax
@@ -157,8 +156,7 @@ def append(
         return KVCache(k=ck, v=cv, lengths=lengths, k_scale=cks, v_scale=cvs)
 
     # Chunked/prefill write (T tokens per slot, few slots): contiguous
-    # dynamic_update_slice per slot beats a (N*T)-row scatter on TPU
-    # (measured: the scatter version nearly halved prefill tokens/s).
+    # dynamic_update_slice per slot instead of a (N*T)-row scatter.
     def write_one(carry, i):
         cache_k, cache_v, cache_ks, cache_vs = carry
         slot = slot_ids[i]
@@ -190,84 +188,6 @@ def append(
         lengths=lengths,
         k_scale=cks if cache.k_scale is not None else None,
         v_scale=cvs if cache.v_scale is not None else None,
-    )
-
-
-def append_quantized_token(
-    cache: KVCache,
-    kq: jax.Array,
-    ks: Optional[jax.Array],
-    vq: jax.Array,
-    vs: Optional[jax.Array],
-    offsets: jax.Array,
-    n_valid: jax.Array,
-) -> KVCache:
-    """Decode write of ONE already-quantized token per slot.
-
-    The mega-kernel decode path (ops/megastep.py) quantizes the new
-    token once — the kernel consumes the quantized values analytically
-    while this scatter (the same hinted one-scatter-per-array write as
-    :func:`append`'s T=1 branch) persists them for future steps.  Because
-    the kernel reads the PRE-append cache, this write has no consumer in
-    the current layer and XLA schedules it off the critical path.
-
-    Args: kq/vq (B, Hkv, D') values in the cache container, ks/vs
-    (B, Hkv) fp32 token scales (None for full-precision caches),
-    offsets (B,) write rows, n_valid (B,) 0/1 length bumps.
-    """
-    rows = offsets[:, None]
-    sids = jnp.arange(cache.num_slots, dtype=jnp.int32)[:, None]
-    hints = dict(indices_are_sorted=True, unique_indices=True)
-    ck = cache.k.at[sids, :, rows].set(kq[:, None], **hints)
-    cv = cache.v.at[sids, :, rows].set(vq[:, None], **hints)
-    cks, cvs = cache.k_scale, cache.v_scale
-    if ks is not None:
-        cks = cks.at[sids, :, rows].set(ks[:, None], **hints)
-        cvs = cvs.at[sids, :, rows].set(vs[:, None], **hints)
-    return KVCache(
-        k=ck, v=cv, lengths=offsets + n_valid, k_scale=cks, v_scale=cvs
-    )
-
-
-def flush_side(
-    cache: KVCache,
-    sk: jax.Array,
-    sv: jax.Array,
-    sks: jax.Array,
-    svs: jax.Array,
-    base: jax.Array,
-    new_lengths: jax.Array,
-) -> KVCache:
-    """Persist a burst's side-buffer tokens into the slot cache.
-
-    Side column t of slot b lands at row ``base[b] + t`` (the mega-burst
-    writes side columns at the SHARED step index, so a slot's valid
-    columns are a prefix and map to consecutive rows).  Columns past a
-    slot's last active step hold garbage that lands at rows >=
-    ``new_lengths[b]`` — contract-garbage — and rows past ``max_len``
-    are dropped (mode="drop"; the engine clamps bursts so no ACTIVE
-    slot's rows overflow, only never-active full slots hit this).
-
-    One scatter per cache array per BURST: the per-step scatter was the
-    single biggest decode cost (~8 ms/step at 64-slot 8B shapes — a
-    scatter whose output feeds a pallas kernel is silently COPIED,
-    benchmarks/append_probe.py); amortized over a 64-step burst it
-    disappears.
-    """
-    t_width = sk.shape[2]
-    rows = base[:, None] + jnp.arange(t_width, dtype=jnp.int32)  # (B, T)
-    sids = jnp.arange(cache.num_slots, dtype=jnp.int32)[:, None]
-    hints = dict(indices_are_sorted=True, unique_indices=True, mode="drop")
-    ck = cache.k.at[sids, :, rows].set(sk.transpose(0, 2, 1, 3), **hints)
-    cv = cache.v.at[sids, :, rows].set(sv.transpose(0, 2, 1, 3), **hints)
-    cks = cache.k_scale.at[sids, :, rows].set(
-        sks.transpose(0, 2, 1), **hints
-    )
-    cvs = cache.v_scale.at[sids, :, rows].set(
-        svs.transpose(0, 2, 1), **hints
-    )
-    return KVCache(
-        k=ck, v=cv, lengths=new_lengths, k_scale=cks, v_scale=cvs
     )
 
 

@@ -10,11 +10,8 @@ Device-side layout per layer (matching ops/paged.py):
   k_pages / v_pages:           (Hkv, num_pages, page_size, D)
   k_scale_pages / v_scale_pages (8-bit pages): fp32,
       (Hkv, num_pages, page_size)           for page_size <= 128,
-      (Hkv, num_pages, page_size/128, 128)  for larger pages — a per-page
-      DMA slice of a >128-wide 1-D scale row trips Mosaic's tiling rules
-      (measured: benchmarks/probe_scale_dma.py; only the 128-lane-minor
-      2-D slab form compiles), and this relayout is what unlocks
-      page_size=256 (VERDICT r4 item 4).
+      (Hkv, num_pages, page_size/128, 128)  for larger pages (the folded
+      layout the page writes and the gather both read).
 
 Host-side state (plain numpy — allocation is Python-scheduler work):
   free page list, page_tables (num_slots, max_pages_per_seq), lengths.
@@ -72,9 +69,8 @@ def init_layer_pages(
     axis (split-halves within each page: token t -> low nibble of row t,
     token t + page_size/2 -> high nibble), so pages are
     (Hkv, P, page_size/2, head_dim).  Packing the token axis — not
-    head_dim like the slot cache — keeps the 128-lane minor dim intact,
-    which is what Mosaic's DMA alignment rules require for the async page
-    gather (ops/paged.py).  Scales stay per REAL token:
+    head_dim like the slot cache — keeps the head_dim minor dim intact
+    for the page gather (ops/paged.py).  Scales stay per REAL token:
     (Hkv, P, page_size) fp32."""
     if int4:
         if dtype != jnp.int8:
@@ -95,7 +91,7 @@ def init_layer_pages(
 
 def scale_shape(num_kv_heads: int, num_pages: int, page_size: int) -> tuple:
     """Scale-page array shape (module docstring: >128-token pages fold the
-    token axis into (page_size/128, 128) for Mosaic DMA legality)."""
+    token axis into (page_size/128, 128))."""
     if page_size > 128 and page_size % 128 == 0:
         return (num_kv_heads, num_pages, page_size // 128, 128)
     return (num_kv_heads, num_pages, page_size)

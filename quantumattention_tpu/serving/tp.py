@@ -2,8 +2,7 @@
 placement for the continuous-batching engine.
 
 The reference is single-GPU (SURVEY.md §2.3 — zero distributed code); this
-is north-star territory (BASELINE.md scaling target: ≥85% tokens/s
-efficiency 1 host → N hosts at 70B shapes).  The TPU-native recipe:
+serves models larger than one card.  The recipe:
 
   * weights Megatron-sharded over a ``tp`` mesh axis via GSPMD
     (``parallel/mesh.llama_param_specs`` col/row splits — XLA inserts the
@@ -16,9 +15,8 @@ efficiency 1 host → N hosts at 70B shapes).  The TPU-native recipe:
     ``parallel/tp.head_parallel_attention``); the wrapper runs the fused
     kernel on each chip's local heads instead.
 
-Per-chip HBM at Llama-3-70B shapes (the BASELINE scaling config): 70 GB
-of int8 weights / tp=8 ≈ 8.8 GB + the KV-head shard of the cache — one
-v5e pod slice serves what a single 16 GB chip cannot hold.
+Per-card HBM at Llama-3-70B shapes: 140 GB of bf16 weights / tp=4 = 35 GB
++ the KV-head shard of the cache.
 """
 
 from __future__ import annotations

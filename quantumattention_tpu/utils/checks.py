@@ -1,9 +1,11 @@
 """Capability / feature gates.
 
-TPU-native analogue of the reference's version & CUDA-capability predicates
-(reference: src/quantum_attn/utils/checks.py:9-75).  On TPU the interesting
-axes are: which backend the arrays live on (tpu vs cpu interpret), the TPU
-generation (for 8-bit MXU throughput), and the JAX version.
+JAX analogue of the reference's version & CUDA-capability predicates
+(reference: src/quantum_attn/utils/checks.py:9-75).  The axes that matter
+are which backend the arrays live on (``gpu`` compiles the Pallas kernels,
+``cpu`` interprets them for tests), the GPU's compute capability (fp8
+tensor cores from 9.0 on, the reference's Hopper gate), and the JAX
+version.
 
 All predicates are pure Python evaluated at trace time, so under ``jax.jit``
 they constant-fold — the JAX analogue of the reference's
@@ -32,59 +34,44 @@ def default_backend() -> str:
     return jax.default_backend()
 
 
-def is_tpu_backend() -> bool:
-    return default_backend() == "tpu"
-
-
 def is_cpu_backend() -> bool:
     return default_backend() == "cpu"
 
 
 @functools.cache
-def tpu_generation() -> int:
-    """Best-effort TPU generation number (0 when not on TPU).
+def gpu_compute_capability() -> tuple:
+    """(major, minor) compute capability of the first GPU, () off a GPU.
 
-    The analogue of the reference's ``cuda_capability_compare`` gate
-    (checks.py:61-64) which it uses to require Hopper (SM90) for the fused
-    kernels; here it gates 8-bit-MXU paths by TPU generation.
+    Read from the device's ``compute_capability`` attribute ("9.0" on an
+    H100/H200), the same attribute jaxlib's Triton lowering reads.
     """
-    if not is_tpu_backend():
-        return 0
-    import re
-
-    kind = jax.devices()[0].device_kind.lower()
-    # Matches both "tpu v5 lite" style and bare "tpu7x" style names.
-    m = re.search(r"v?(\d+)", kind.replace("tpu", " ", 1))
-    return int(m.group(1)) if m else 0
+    if default_backend() != "gpu":
+        return ()
+    cc = jax.devices()[0].compute_capability
+    return tuple(int(p) for p in str(cc).split("."))
 
 
-def supports_int8_mxu() -> bool:
-    """Whether the MXU runs int8 x int8 -> int32 at >= bf16 rate (v5+)."""
-    return tpu_generation() >= 5
+def supports_fp8_tensor_cores() -> bool:
+    """Whether the GPU multiplies fp8 e4m3 operands natively (CC >= 9.0).
 
-
-def supports_fp8_mxu() -> bool:
-    """Whether the MXU multiplies fp8 e4m3 operands natively (v6e+).
-
-    The TPU mirror of the reference's Hopper CC >= 9.0 gate for its fp8
-    WGMMA kernel (reference checks.py:61-64, tk/attention.py:233).  v5e has
-    no fp8 MXU mode — 8-bit throughput there comes from the int8 path.
+    The reference's Hopper gate for its fp8 WGMMA kernel (reference
+    checks.py:61-64, tk/attention.py:233).
     """
-    return tpu_generation() >= 6
+    return gpu_compute_capability() >= (9, 0)
 
 
 def fp8_dot_enabled() -> bool:
-    """Resolve config.attention.fp8_dot ("auto" => generation gate).
+    """Resolve config.attention.fp8_dot ("auto" => compute-capability gate).
 
     Forcing it on (config.patch({"attention.fp8_dot": True})) lets CPU
-    interpret-mode tests exercise the fp8-native dot path that compiled
-    kernels take on v6e+.
+    interpret-mode tests exercise the fp8-native dot that compiled kernels
+    take on Hopper.
     """
     from .. import config
 
     mode = config.attention.fp8_dot
     if mode == "auto":
-        return supports_fp8_mxu()
+        return supports_fp8_tensor_cores()
     return bool(mode)
 
 
@@ -110,9 +97,18 @@ def is_8bit_dtype(dtype) -> bool:
 def resolve_interpret(interpret) -> bool:
     """Resolve the config.interpret setting to a concrete bool.
 
-    "auto" => interpret only when running on CPU (so correctness tests run
-    without TPUs; SURVEY.md section 4 implication).
+    "auto" => interpret on ``cpu`` (so correctness tests run without a
+    card) and compile on ``gpu``.  Any other platform has no Pallas route
+    here and raises instead of silently picking one.
     """
-    if interpret == "auto":
-        return not is_tpu_backend()
-    return bool(interpret)
+    if interpret != "auto":
+        return bool(interpret)
+    backend = default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(
+        f"no Pallas route for platform {backend!r}: kernels compile on "
+        "'gpu' and run in interpret mode on 'cpu'"
+    )

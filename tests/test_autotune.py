@@ -1,4 +1,4 @@
-"""Autotuner unit tests (cache, pruning, sweep logic — no TPU needed)."""
+"""Autotuner unit tests (fit model, cache, sweep logic — no card needed)."""
 
 import json
 
@@ -24,34 +24,66 @@ def test_shape_key_buckets_long_sequences():
     assert k1 != k3  # 16384 bucket
 
 
-def test_prune_respects_vmem():
-    # The fit model now follows the limit the kernel will actually request
-    # (64 MiB on v5e+); pin it so the assertion is device-independent.
-    # The measured-best (1024, 2048) must survive the v5e budget (the old
-    # 32 MiB model wrongly rejected configs the kernel runs fine)...
-    assert autotune.vmem_fits(1024, 2048, 128, limit_mb=64)
-    assert autotune.vmem_fits(1024, 2048, 256, limit_mb=64)
-    # ...but not the pre-v5 default budget.
-    assert not autotune.vmem_fits(1024, 2048, 128, limit_mb=16)
-    cands = autotune.prune_candidates(8192, 8192, 128)
-    assert all(autotune.vmem_fits(bq, bkv, 128) for bq, bkv in cands)
+@pytest.mark.parametrize(
+    "block_q,block_kv,head_dim,q_bytes,kv_bytes,stages,fits",
+    [
+        # The per-head-dim defaults fit with a pipelined K/V ring.
+        (128, 128, 64, 2, 2, 3, True),
+        (128, 128, 128, 2, 2, 2, True),
+        (128, 64, 256, 2, 2, 2, True),
+        # 8-bit K/V tiles halve the ring: a third stage fits at D = 128.
+        (128, 128, 128, 2, 1, 3, True),
+        # ...but not in bf16, and D = 256 needs the 64-row KV tile.
+        (128, 128, 128, 2, 2, 3, False),
+        (128, 128, 256, 2, 2, 2, False),
+        (128, 128, 256, 2, 2, 1, True),
+        # fp32 operands at large tiles exceed one block's shared memory.
+        (256, 256, 128, 4, 4, 1, False),
+    ],
+)
+def test_prune_respects_vmem(block_q, block_kv, head_dim, q_bytes, kv_bytes,
+                             stages, fits):
+    """The Hopper shared-memory fit model (232,448 bytes a block)."""
+    need = autotune.smem_bytes(block_q, block_kv, head_dim, q_bytes, kv_bytes,
+                               stages)
+    assert need == (block_q * head_dim * q_bytes
+                    + stages * 2 * block_kv * head_dim * kv_bytes)
+    assert autotune.smem_fits(
+        block_q, block_kv, head_dim, q_bytes, kv_bytes, stages
+    ) is fits
 
 
 def test_prune_shrinks_for_short_seqs():
-    cands = autotune.prune_candidates(256, 256, 64)
-    assert all(bq <= 512 and bkv <= 512 for bq, bkv in cands)
+    """choose_tiles keeps the deepest pipeline the fit model admits and
+    rejects tiles that cannot run at all; the kernel shrinks tiles to
+    short sequences."""
+    from quantumattention_tpu.ops import flash
+
+    t = flash.choose_tiles(128, 2, 2)
+    assert (t.block_q, t.block_kv) == flash.default_tiles(128)[:2]
+    assert autotune.smem_fits(t.block_q, t.block_kv, 128, 2, 2, t.num_stages)
+    assert not autotune.smem_fits(
+        t.block_q, t.block_kv, 128, 2, 2, t.num_stages + 1
+    )
+    assert flash.choose_tiles(256, 2, 2, 128, 128).num_stages == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        flash.choose_tiles(256, 4, 4, 256, 256)
+    with pytest.raises(ValueError, match="powers of two"):
+        flash.choose_tiles(128, 2, 2, 96, 128)
+    q = jnp.ones((1, 1, 40, 64), jnp.bfloat16)
+    out = flash.flash_attention(q, q, q)  # 64-row tiles cover S = 40
+    assert out.shape == q.shape
 
 
 def test_tune_caches_winner(tmp_path):
     calls = []
 
-    def runner(bq, bkv):
+    def runner(choice):
         def run():
-            calls.append((bq, bkv))
-            import jax.numpy as jnp
+            calls.append(choice)
             import time
 
-            time.sleep(0.01 if (bq, bkv) == (128, 128) else 0.05)
+            time.sleep(0.01 if choice == (128, 128) else 0.05)
             return jnp.zeros((2, 2))
 
         return run
@@ -70,56 +102,50 @@ def test_tune_caches_winner(tmp_path):
 
 
 def test_tune_skips_failing_candidates():
-    def runner(bq, bkv):
+    """A failing choice is not skipped: the error propagates and nothing
+    is cached (choices that cannot run are pruned before timing)."""
+    def runner(choice):
         def run():
-            if bq == 128:
+            if choice == (128, 128):
                 raise RuntimeError("compile OOM")
-            import jax.numpy as jnp
-
             return jnp.zeros((2, 2))
 
         return run
 
-    best = autotune.tune("test|fail", runner, [(128, 128), (256, 256)])
-    assert best == (256, 256)
+    with pytest.raises(RuntimeError, match="compile OOM"):
+        autotune.tune("test|fail", runner, [(128, 128), (256, 256)])
+    assert autotune.lookup("test|fail") is None
 
 
 def test_tune_chained_runner_times_and_caches():
-    """Runners taking an eps argument go through the chained-scan timer
-    (the fixed ~33 ms dispatch+fetch roundtrip otherwise drowns sub-ms
-    candidate differences; CLAUDE.md 'measured truths')."""
-    import jax
-    import jax.numpy as jnp
+    """String choices (the dispatcher's path names) time and cache like
+    tile pairs."""
+    def runner(choice):
+        n = 128 if choice == "small" else 256
 
-    def runner(bq, bkv):
-        def run(eps):
-            # Work scales with bq so the ordering is deterministic enough
-            # on CPU; eps threads the chain dependency.
-            x = jnp.ones((bq, 128), jnp.float32) + eps
-            return (x * 2.0).sum(axis=1, keepdims=True)
+        def run(x):
+            return (x[:n] * 2.0).sum(axis=1, keepdims=True)
 
-        return run
+        return run, (jnp.ones((256, 128), jnp.float32),)
 
-    best = autotune.tune("test|chained", runner, [(128, 128), (256, 256)])
-    assert best in [(128, 128), (256, 256)]
+    best = autotune.tune("test|chained", runner, ["small", "large"])
+    assert best in ("small", "large")
     data = json.loads(autotune.cache_path().read_text())
-    assert data["test|chained"] == list(best)
+    assert data["test|chained"] == best
 
 
 def test_time_chained_matches_contract():
-    import jax.numpy as jnp
-
+    """time_call: one warm-up call, then ``reps`` timed calls that each
+    wait for the device (block_until_ready)."""
     calls = []
 
-    def run(eps):
+    def run(x):
         calls.append(1)
-        return jnp.zeros((4, 4)) + eps
+        return x + 1.0
 
-    t = autotune._time_chained(run)
+    t = autotune.time_call(run, (jnp.zeros((4, 4)),), reps=3)
     assert t >= 0.0
-    # Traced a handful of times (warm + rough + chained compile), not once
-    # per chained iteration.
-    assert len(calls) <= 8
+    assert len(calls) == 4
 
 
 def test_run_outside_trace_escapes_ambient_trace():
@@ -154,24 +180,21 @@ def test_pretuned_defaults_merge(tmp_path, monkeypatch):
     autotune._CACHE = None
     assert autotune.lookup("dev|flash|shipped") == (512, 1024)
     # user record overrides the shipped value and persists
-    autotune.record("dev|flash|both", 1024, 2048)
+    autotune.record("dev|flash|both", (1024, 2048))
     autotune._CACHE = None
     assert autotune.lookup("dev|flash|both") == (1024, 2048)
     assert autotune.lookup("dev|flash|shipped") == (512, 1024)
 
 
 def test_tune_accepts_runner_pairs():
-    """(fn, args) runner pairs: buffers ride as jit parameters (the
-    HTTP-413-safe contract used by the fused kernels)."""
-    import jax.numpy as jnp
-
+    """(fn, args) runner pairs: buffers ride as call arguments."""
     big = jnp.ones((64, 128), jnp.float32)
 
-    def runner(bq, bkv):
-        def run(eps, x):
-            return (x[:bq // 64 + 1] * 2.0 + eps).sum(
-                axis=1, keepdims=True
-            )
+    def runner(choice):
+        bq = choice[0]
+
+        def run(x):
+            return (x[:bq // 64 + 1] * 2.0).sum(axis=1, keepdims=True)
 
         return run, (big,)
 

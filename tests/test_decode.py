@@ -279,24 +279,28 @@ def test_decode_sliding_window():
 
 
 def test_decode_auto_window_block_is_power_of_two():
-    """ADVICE r2: the auto block_kv for a window must be a power of two —
-    round_up(window+1, 512) picked 1536/2560/3584 for the common power-of-
-    two windows, which never divide s_max, and a non-dividing block makes
-    decode_attention jnp.pad the ENTIRE cache (plus scales) every step."""
-    from quantumattention_tpu.ops.decode import _auto_window_block_kv
+    """The decode kernel's KV tile is a power of two and its splits tile
+    every power-of-two cache extent exactly — a non-dividing tiling would
+    make decode_attention jnp.pad the ENTIRE cache (plus scales) every
+    step."""
+    from quantumattention_tpu.ops.decode import decode_tiling
 
-    for w, expect in [
-        (255, 512), (511, 512), (512, 1024), (1023, 1024),
-        (1024, 2048), (2047, 2048), (2048, 4096), (4095, 4096),
-        (4096, 4096), (100_000, 4096),
-    ]:
-        got = _auto_window_block_kv(w)
-        assert got == expect, (w, got)
-        assert got & (got - 1) == 0  # power of two
-        # Divides every power-of-two cache extent >= the block.
-        for s_max in (4096, 8192, 16384, 131072):
-            if s_max >= got:
-                assert s_max % got == 0
+    for batch, kv_heads in [(1, 1), (2, 8), (16, 8), (64, 8)]:
+        for s_max in (128, 4096, 8192, 16384, 131072):
+            bkv, splits, split_len = decode_tiling(batch, kv_heads, s_max)
+            assert bkv & (bkv - 1) == 0  # power of two
+            assert split_len % bkv == 0
+            assert split_len * splits == s_max, (batch, kv_heads, s_max)
+    with pytest.raises(ValueError, match="power of two"):
+        decode_tiling(1, 1, 4096, block_kv=96)
+    # The shared-memory fit model sets the pipeline depth and rejects
+    # tiles that cannot run on the card.
+    from quantumattention_tpu.ops.decode import decode_stages
+
+    assert decode_stages(16, 128, 128, 1) == 3
+    assert decode_stages(16, 256, 128, 2) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_stages(16, 2048, 128, 1)
 
 
 def test_decode_auto_window_block_correct_pow2_window():

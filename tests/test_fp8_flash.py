@@ -224,14 +224,14 @@ def test_per_block_rejects_scales():
 
 
 def test_fp8_native_dot_forced():
-    """The generation-gated fp8-native MXU dot (reference fp8 WGMMA analogue,
+    """The capability-gated fp8-native dot (reference fp8 WGMMA,
     tk/attention.py:233), forced on so CPU interpret mode exercises the
-    v6e+ code path."""
+    Hopper code path."""
     from quantumattention_tpu import config
     from quantumattention_tpu.utils import checks
 
-    # Default gate: off unless tpu_generation() >= 6.
-    assert checks.fp8_dot_enabled() == checks.supports_fp8_mxu()
+    # Default gate: on only with fp8 tensor cores (compute capability 9.0+).
+    assert checks.fp8_dot_enabled() == checks.supports_fp8_tensor_cores()
 
     q, k, v = make_qkv(2, 4, 4, 384, 384, 64, seed=11)
     q8, sq = quant.quantize_head_wise(q)
@@ -269,8 +269,8 @@ def test_fp8_native_dot_tokenwise():
 
 
 def test_per_block_fp8_container():
-    """per-block in-kernel quantization with the fp8 e4m3 container (the
-    v6e+ path; int8 is the v5e container)."""
+    """per-block in-kernel quantization with the fp8 e4m3 container fed
+    straight to the dot (the Hopper path)."""
     import quantumattention_tpu as qa
     from quantumattention_tpu import config
 
@@ -286,25 +286,24 @@ def test_per_block_fp8_container():
     assert rmse(out, ref) < RMSE_TOL
 
 
-def test_per_block_k_only_cache(monkeypatch):
-    """K-only VMEM cache mode (long-context ladder): force the V-cache
-    budget to zero so the kernel keeps only the quantized K cache and
-    streams V — the path 32K-256K contexts take on hardware."""
+def test_per_block_k_only_cache():
+    """per-block quantization with many small KV tiles per Q tile: each KV
+    tile is quantized inside the loop with its own scale (the path long
+    contexts take), causal and not."""
     import quantumattention_tpu as qa
-    from quantumattention_tpu.ops import flash as flash_mod
+    from quantumattention_tpu import config
 
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(14), 3)
     q = jax.random.normal(k1, (1, 2, 512, 128), jnp.bfloat16)
     k = jax.random.normal(k2, (1, 2, 512, 128), jnp.bfloat16)
     v = jax.random.normal(k3, (1, 2, 512, 128), jnp.bfloat16)
     ref = sdpa_reference(q, k, v, is_causal=True)
-    monkeypatch.setattr(flash_mod, "KV_CACHE_BUDGET_BYTES", 0)
-    out = qa.fp8_attn_func(
-        q, k, v, is_causal=True, scaling_method="per-block"
-    )
-    assert rmse(out, ref) < RMSE_TOL
-    # Non-causal too (different fill/index maps).
-    out_nc = qa.fp8_attn_func(q, k, v, scaling_method="per-block")
+    with config.patch({"kernel.block_q": 64, "kernel.block_kv": 32}):
+        out = qa.fp8_attn_func(
+            q, k, v, is_causal=True, scaling_method="per-block"
+        )
+        assert rmse(out, ref) < RMSE_TOL
+        out_nc = qa.fp8_attn_func(q, k, v, scaling_method="per-block")
     assert rmse(out_nc, sdpa_reference(q, k, v)) < RMSE_TOL
 
 
@@ -340,9 +339,9 @@ def test_auto_scaling_method_dispatch():
     # A cached winner must be honored — pin "none" (bf16 path) and check
     # the output now matches the unquantized kernel bit-for-bit.
     pkey = autotune.shape_key("path", 1, 4, 4, 256, 256, 64, True, q.dtype)
-    prev = autotune.lookup_value(pkey)
+    prev = autotune.lookup(pkey)
     try:
-        autotune.record_value(pkey, "none")
+        autotune.record(pkey, "none")
         out_none = qa.fp8_attn_func(
             q, k, v, is_causal=True, scaling_method="auto"
         )
@@ -355,7 +354,7 @@ def test_auto_scaling_method_dispatch():
             autotune._load_cache().pop(pkey, None)
             autotune._save_cache()
         else:
-            autotune.record_value(pkey, prev)
+            autotune.record(pkey, prev)
 
 
 def test_auto_rejects_scales_and_8bit():
@@ -367,51 +366,3 @@ def test_auto_rejects_scales_and_8bit():
             q, q, q, scaling_method="auto",
             scale_q=jnp.ones((1, 2)), scale_k=jnp.ones((1, 2)),
         )
-
-
-def test_fp8_native_dot_lowers_to_mosaic():
-    """Bit-rot guard for the fp8-native MXU path (VERDICT r3 item 5).
-
-    The fp8_dot kernel variant (flash.py `use_fp8_dot` — the analogue of
-    the reference's fp8 WGMMA, tk/attention.py:233) is gated to v6e+ and
-    cannot EXECUTE on the available v5e; this test runs the full
-    Pallas -> Mosaic MLIR lowering for the TPU platform (jax.export) so
-    any kernel-authoring regression in the fp8 branch fails here rather
-    than silently surviving behind the generation gate.  The remaining
-    untested step — the Mosaic binary compile on fp8-capable hardware —
-    is recorded in BASELINE.md's north-star disposition."""
-    from quantumattention_tpu import config
-    from quantumattention_tpu.ops.flash import flash_attention
-
-    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(21), 3)
-    q = jax.random.normal(k1, (1, 2, 256, 128), jnp.bfloat16)
-    k = jax.random.normal(k2, (1, 2, 256, 128), jnp.bfloat16)
-    v = jax.random.normal(k3, (1, 2, 256, 128), jnp.bfloat16)
-    q8, sq = quant.quantize_head_wise(q)
-    k8, sk = quant.quantize_head_wise(k)
-
-    def fn(a, b, c, d, e):
-        return flash_attention(
-            a, b, c, scale_q=d, scale_k=e, is_causal=True,
-            block_q=128, block_kv=128, interpret=False,
-        )
-
-    with config.patch({"attention.fp8_dot": True}):
-        exported = jax.export.export(jax.jit(fn), platforms=["tpu"])(
-            q8, k8, v.astype(jnp.bfloat16), sq, sk
-        )
-    assert len(exported.mlir_module_serialized) > 0
-    # The per-block in-kernel-quantization variant with the fp8 e4m3
-    # container (scaling="block" + fp8_native) must lower too.
-    import quantumattention_tpu as qa
-
-    def fn_pb(a, b, c):
-        return qa.fp8_attn_func(
-            a, b, c, is_causal=True, scaling_method="per-block"
-        )
-
-    with config.patch({"attention.fp8_dot": True, "interpret": False}):
-        exported_pb = jax.export.export(jax.jit(fn_pb), platforms=["tpu"])(
-            q, k, v
-        )
-    assert len(exported_pb.mlir_module_serialized) > 0

@@ -39,8 +39,9 @@ def test_fuzz_flash_vs_oracle(seed):
     if rng.random() < 0.4:
         left = rng.randrange(8, max(9, sq))
         window = (left, 0 if is_causal else rng.randrange(0, 64))
-    bq = rng.choice([128, 256])
-    bkv = rng.choice([128, 256])
+    # Tiles the Hopper shared-memory fit model admits (ops/flash.choose_tiles).
+    bq = rng.choice([64, 128])
+    bkv = rng.choice([32, 64, 128])
 
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
     q = jax.random.normal(k1, (1, hq, sq, d), jnp.float32).astype(dtype)
@@ -63,7 +64,8 @@ def test_fuzz_flash_vs_oracle(seed):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_backward_vs_oracle(seed):
-    """Random configs through the Pallas backward vs jax.grad of the oracle."""
+    """Random configs through the custom-VJP backward vs jax.grad of the
+    oracle."""
     from quantumattention_tpu.ops.autodiff import attention_with_vjp
 
     rng = random.Random(1000 + seed)

@@ -1,14 +1,15 @@
-"""w4a16 group-wise int4 weights: packing, quantization, the qmm/qmlp
-int4 kernel paths (interpret mode), and the end-to-end model/engine."""
+"""w4a16 group-wise int4 weights: packing, quantization, the plain
+dequantize-and-einsum matmul, the layer tail, and the end-to-end
+model/engine."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quantumattention_tpu import config
 from quantumattention_tpu.models import llama, quantized as qz
-from quantumattention_tpu.ops import qmlp, qmm
 
 
 def rel_rmse(a, b):
@@ -44,37 +45,40 @@ def test_quantize_int4_groupwise():
 
 
 def test_qmm4_matches_dequantized_einsum():
+    """quantized.matmul on a w4a16 matrix is the einsum with the
+    dequantized weights."""
     w = qz.quantize_matrix_int4(
         jax.random.normal(jax.random.PRNGKey(2), (512, 384)) / 20
     )
     x = jax.random.normal(jax.random.PRNGKey(3), (16, 512), jnp.float32)
-    got = qmm.quantized_matmul4(x, w["q4"], w["s"], interpret=True)
+    got = qz.matmul("me,eo->mo", x, w)
     want = x @ qz.dequantize_int4(w)
     assert rel_rmse(got, want) < 1e-5
-    # ragged M, bf16, explicit blocks
-    xb = jax.random.normal(jax.random.PRNGKey(4), (33, 1024), jnp.bfloat16)
+    # ragged M, bf16, 3-D activations
+    xb = jax.random.normal(jax.random.PRNGKey(4), (3, 11, 1024), jnp.bfloat16)
     wb = qz.quantize_matrix_int4(
         jax.random.normal(jax.random.PRNGKey(5), (1024, 512))
     )
-    got = qmm.quantized_matmul4(
-        xb, wb["q4"], wb["s"], block_m=16, block_n=256, block_k=256,
-        interpret=True,
-    )
+    got = qz.matmul("bse,eo->bso", xb, wb)
     want = (xb.astype(jnp.float32) @ qz.dequantize_int4(wb)).astype(
         jnp.bfloat16
     )
+    assert got.shape == (3, 11, 512) and got.dtype == jnp.bfloat16
     assert rel_rmse(got, want) < 1e-2
 
 
 def test_qmm4_gates():
-    x = jnp.zeros((4, 512), jnp.bfloat16)
-    w4 = jnp.zeros((256, 384), jnp.int8)
-    assert qmm.supported4(x, w4)
-    assert not qmm.supported4(jnp.zeros((4, 384), jnp.bfloat16), w4)  # K
-    assert not qmm.supported4(x, jnp.zeros((256, 100), jnp.int8))  # N%128
-    assert not qmm.supported4(jnp.zeros((4, 512), jnp.int32), w4)  # dtype
-    with pytest.raises(ValueError, match="scale"):
-        qmm.quantized_matmul4(x, w4, jnp.ones((3, 384)), interpret=True)
+    """Group-wise int4 needs whole 256-row packing blocks; the packed
+    layout round-trips through quantized.matmul for any output width."""
+    with pytest.raises(ValueError, match="256"):
+        qz.quantize_matrix_int4(jnp.zeros((384, 128)))
+    w4 = qz.quantize_matrix_int4(
+        jax.random.normal(jax.random.PRNGKey(13), (256, 100))
+    )
+    assert w4["q4"].shape == (128, 100) and w4["s"].shape == (2, 100)
+    x = jax.random.normal(jax.random.PRNGKey(14), (4, 256), jnp.float32)
+    got = qz.matmul("me,eo->mo", x, w4)
+    assert rel_rmse(got, x @ qz.dequantize_int4(w4)) < 1e-5
 
 
 def _mk_int4_layer(key, e, inter, q_dim):
@@ -115,10 +119,8 @@ def test_fused_tail_int4(dtype):
     layer = _mk_int4_layer(jax.random.PRNGKey(6), e, inter, q_dim)
     x = jax.random.normal(jax.random.PRNGKey(7), (m, e)).astype(dtype)
     attn = jax.random.normal(jax.random.PRNGKey(8), (m, q_dim)).astype(dtype)
-    got = qmlp.fused_layer_tail(
-        x, layer["mlp_norm"], layer["w_gate_up"], layer["w_down"],
-        eps=1e-5, attn_out=attn, wo=layer["wo"], interpret=True,
-    )
+    cfg = dataclasses.replace(CFG4, hidden_size=e, intermediate_size=inter)
+    got = llama._layer_tail(cfg, layer, x[None], attn[None])[0]
     want = _tail_reference(layer, x, attn)
     tol = 1e-2 if dtype == jnp.bfloat16 else 1e-4
     assert rel_rmse(got, want) < tol
@@ -132,10 +134,8 @@ def test_fused_tail_mixed_int8_wo():
     )
     x = jax.random.normal(jax.random.PRNGKey(11), (m, e), jnp.float32)
     attn = jax.random.normal(jax.random.PRNGKey(12), (m, q_dim), jnp.float32)
-    got = qmlp.fused_layer_tail(
-        x, layer["mlp_norm"], layer["w_gate_up"], layer["w_down"],
-        eps=1e-5, attn_out=attn, wo=layer["wo"], interpret=True,
-    )
+    cfg = dataclasses.replace(CFG4, hidden_size=e, intermediate_size=inter)
+    got = llama._layer_tail(cfg, layer, x[None], attn[None])[0]
     wo_f = layer["wo"]["q"].astype(jnp.float32) * layer["wo"]["s"]
     x1 = x + attn @ wo_f
     xf = x1.astype(jnp.float32)
@@ -164,10 +164,11 @@ def test_int4_model_forward_and_routing():
     assert "q4" in layer["w_gate_up"] and "q4" in layer["w_qkv"]
     assert "q" in params["lm_head"]  # head/embed stay int8
     tokens = jnp.array([[3, 1, 4, 1]], jnp.int32)
-    base = llama.forward(params, tokens, CFG4)
-    with config.patch({"kernel.qmlp": "force"}):
-        assert qmlp.tail_supported(CFG4, layer, jnp.zeros((1, 1, 256)))
-        fused = llama.forward(params, tokens, CFG4)
+    fused = llama.forward(params, tokens, CFG4)
+    base = llama.forward(
+        qz.init_quantized_params(jax.random.PRNGKey(0), CFG4, int4=True),
+        tokens, CFG4,
+    )
     assert rel_rmse(fused, base) < 2e-2
     # int4 tree sharding specs mirror the structure
     from quantumattention_tpu.parallel import mesh as qmesh

@@ -1,4 +1,4 @@
-"""Paged decode attention tests (async-DMA page gather, CPU interpret mode).
+"""Paged decode attention tests (page gather + decode attention, CPU interpret mode).
 
 Oracle: gather the pages back into a contiguous cache in numpy and run fp32
 SDPA on the valid prefix.
@@ -55,8 +55,6 @@ def test_paged_bf16(group):
         v_pages.astype(jnp.bfloat16),
         lengths,
         table,
-        pages_per_block=4,
-        use_dma=True,
     )
 
     for b in range(B):
@@ -89,8 +87,6 @@ def test_paged_int8_quantized_pages():
         table,
         k_scale_pages=ks,
         v_scale_pages=vs,
-        pages_per_block=2,
-        use_dma=True,
     )
 
     for b in range(B):
@@ -110,14 +106,14 @@ def test_paged_validation():
     table = jnp.zeros((1, 4), jnp.int32)
     with pytest.raises(ValueError, match="scale"):
         paged_decode_attention(q, kp, vp, jnp.array([5], jnp.int32), table)
-    with pytest.raises(ValueError, match="multiple"):
+    with pytest.raises(ValueError, match="window"):
         paged_decode_attention(
             q,
             kp.astype(jnp.bfloat16),
             vp.astype(jnp.bfloat16),
             jnp.array([5], jnp.int32),
             table,
-            pages_per_block=3,
+            window=(4, 2),
         )
 
 
@@ -181,9 +177,9 @@ def test_paged_sliding_window_matches_decode():
 
 def test_paged_int4_token_packed_pages():
     """int4 pages pack two TOKENS per byte along the page's token axis
-    (serving/paged_cache.init_layer_pages layout); the DMA kernel unpacks
-    on the sublane axis so the 128-lane head_dim minor survives.  Oracle:
-    fp32 SDPA over the dequantized gathered prefix."""
+    (serving/paged_cache.init_layer_pages layout); the gather unpacks
+    them along the token axis.  Oracle: fp32 SDPA over the dequantized
+    gathered prefix."""
     from quantumattention_tpu.ops.quant import (
         pack_int4, quantize_int4_values, unpack_int4,
     )
@@ -205,7 +201,6 @@ def test_paged_int4_token_packed_pages():
     out = paged_decode_attention(
         q.astype(jnp.bfloat16), kp4, vp4, lengths, table,
         k_scale_pages=ks, v_scale_pages=vs,
-        pages_per_block=2, use_dma=True,
     )
 
     # Dequantized oracle: the packed container must round-trip exactly.
@@ -270,7 +265,7 @@ def test_paged_int4_write_tokens_roundtrip():
 
 
 def test_paged_multi_query_matches_decode():
-    """4-D q (speculative verification): the paged DMA kernel's
+    """4-D q (speculative verification): the paged path's
     multi-query mode must match the contiguous decode kernel's 4-D mode
     (same (group, token) row packing, same intra-chunk causal mask) on a
     gathered layout."""
@@ -287,7 +282,7 @@ def test_paged_multi_query_matches_decode():
     lengths = jnp.asarray([203, 33], jnp.int32)
 
     o_p = paged_decode_attention(
-        q, kp, vp, lengths, tables, pages_per_block=4, use_dma=True
+        q, kp, vp, lengths, tables
     )
     assert o_p.shape == (B, Hq, T, D)
 
@@ -328,7 +323,7 @@ def test_paged_multi_query_window():
     lengths = jnp.asarray([202, 34], jnp.int32)
 
     o_p = paged_decode_attention(
-        q, kp, vp, lengths, tables, pages_per_block=4, use_dma=True,
+        q, kp, vp, lengths, tables,
         window=(15, 0),
     )
 
@@ -344,10 +339,8 @@ def test_paged_multi_query_window():
 
 def test_paged_folded_scale_pages_ps256():
     """page_size=256 pages carry FOLDED (Hkv, P, 2, 128) scale pages
-    (serving/paged_cache.scale_shape): a >128-wide 1-D per-page DMA slice
-    trips Mosaic tiling (benchmarks/probe_scale_dma.py), so wide pages
-    fold the token axis.  Both the DMA kernel and the gathered reference
-    must consume the folded layout."""
+    (serving/paged_cache.scale_shape); the gather must consume the folded
+    layout."""
     B, Hkv, pages_per_seq, page_size, D = 2, 2, 4, 256, 128
     Hq = Hkv * 4
     k_pages, v_pages, table = make_paged(
@@ -364,27 +357,24 @@ def test_paged_folded_scale_pages_ps256():
     ks_f = ks.reshape(Hkv, P, 2, 128)
     vs_f = vs.reshape(Hkv, P, 2, 128)
 
-    for use_dma in (True, False):
-        out = paged_decode_attention(
-            q.astype(jnp.bfloat16),
-            k8,
-            v8,
-            lengths,
-            table,
-            k_scale_pages=ks_f,
-            v_scale_pages=vs_f,
-            pages_per_block=2,
-            use_dma=use_dma,
-        )
-        for b in range(B):
-            n = int(lengths[b])
-            kc = gather_contiguous(k_pages, table, b)[:, :n]
-            vc = gather_contiguous(v_pages, table, b)[:, :n]
-            ref = sdpa_reference(
-                q[b][None, :, None, :], jnp.asarray(kc)[None],
-                jnp.asarray(vc)[None],
-            )[0, :, 0, :]
-            assert rmse(out[b], ref) < RMSE_TOL, (use_dma, b)
+    out = paged_decode_attention(
+        q.astype(jnp.bfloat16),
+        k8,
+        v8,
+        lengths,
+        table,
+        k_scale_pages=ks_f,
+        v_scale_pages=vs_f,
+    )
+    for b in range(B):
+        n = int(lengths[b])
+        kc = gather_contiguous(k_pages, table, b)[:, :n]
+        vc = gather_contiguous(v_pages, table, b)[:, :n]
+        ref = sdpa_reference(
+            q[b][None, :, None, :], jnp.asarray(kc)[None],
+            jnp.asarray(vc)[None],
+        )[0, :, 0, :]
+        assert rmse(out[b], ref) < RMSE_TOL, b
 
 
 def test_paged_folded_scale_write_roundtrip():
@@ -445,9 +435,9 @@ def _side_oracle(q, kc, vc, side_kf, side_vf, n_side, b):
     )[0, :, 0, :]
 
 
-@pytest.mark.parametrize("use_dma", [True, False])
-def test_paged_side_buffer_int8(use_dma):
-    """Burst side buffer: the kernel attends cache-prefix pages + a
+@pytest.mark.parametrize("use_jit", [True, False])
+def test_paged_side_buffer_int8(use_jit):
+    """Burst side buffer: decode attends cache-prefix pages + a
     (B, Hkv, Tpad, D) side buffer of this burst's appended tokens, so the
     page pool can stay scan-invariant across a decode burst
     (serving/backends.PagedBackend._burst_impl_side).  Oracle: fp32 SDPA
@@ -476,11 +466,15 @@ def test_paged_side_buffer_int8(use_dma):
         0.0, MASK_VALUE,
     ).astype(jnp.float32)
 
-    out = paged_decode_attention(
-        q.astype(jnp.bfloat16), k8, v8, lengths, table,
-        k_scale_pages=ks, v_scale_pages=vs, pages_per_block=2,
-        use_dma=use_dma,
-        side={"k": sk8, "v": sv8, "ks": sks, "vs": svs, "mask": mask},
+    def run(q, k8, v8, lengths, table, ks, vs, side):
+        return paged_decode_attention(
+            q, k8, v8, lengths, table, k_scale_pages=ks, v_scale_pages=vs,
+            side=side,
+        )
+
+    out = (jax.jit(run) if use_jit else run)(
+        q.astype(jnp.bfloat16), k8, v8, lengths, table, ks, vs,
+        {"k": sk8, "v": sv8, "ks": sks, "vs": svs, "mask": mask},
     )
 
     side_kf = np.asarray(sk8, np.float32) * np.asarray(sks)[..., None]
@@ -500,7 +494,7 @@ def test_paged_side_buffer_int8(use_dma):
 
 
 def test_paged_side_buffer_bf16():
-    """Unquantized pages + side buffer (no scales) through both paths."""
+    """Unquantized pages + side buffer (no scales)."""
     from quantumattention_tpu.ops.paged import MASK_VALUE
 
     B, Hkv, pages_per_seq, page_size, D = 2, 2, 4, 128, 128
@@ -517,22 +511,21 @@ def test_paged_side_buffer_bf16():
         jnp.arange(tpad)[None, :] < jnp.asarray(n_side)[:, None],
         0.0, MASK_VALUE,
     ).astype(jnp.float32)
-    for use_dma in (True, False):
-        out = paged_decode_attention(
-            q.astype(jnp.bfloat16),
-            k_pages.astype(jnp.bfloat16), v_pages.astype(jnp.bfloat16),
-            lengths, table, pages_per_block=2, use_dma=use_dma,
-            side={
-                "k": kf.astype(jnp.bfloat16), "v": vf.astype(jnp.bfloat16),
-                "mask": mask,
-            },
-        )
-        for b in range(B):
-            n = int(lengths[b])
-            kc = jnp.asarray(gather_contiguous(k_pages, table, b)[:, :n])
-            vc = jnp.asarray(gather_contiguous(v_pages, table, b)[:, :n])
-            ref = _side_oracle(q, kc, vc, kf, vf, int(n_side[b]), b)
-            assert rmse(out[b], ref) < RMSE_TOL, f"dma={use_dma} seq {b}"
+    out = paged_decode_attention(
+        q.astype(jnp.bfloat16),
+        k_pages.astype(jnp.bfloat16), v_pages.astype(jnp.bfloat16),
+        lengths, table,
+        side={
+            "k": kf.astype(jnp.bfloat16), "v": vf.astype(jnp.bfloat16),
+            "mask": mask,
+        },
+    )
+    for b in range(B):
+        n = int(lengths[b])
+        kc = jnp.asarray(gather_contiguous(k_pages, table, b)[:, :n])
+        vc = jnp.asarray(gather_contiguous(v_pages, table, b)[:, :n])
+        ref = _side_oracle(q, kc, vc, kf, vf, int(n_side[b]), b)
+        assert rmse(out[b], ref) < RMSE_TOL, f"seq {b}"
 
 
 def test_paged_side_buffer_validation():

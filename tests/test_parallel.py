@@ -1,7 +1,7 @@
 """Multi-chip tests on the virtual 8-device CPU mesh.
 
 The reference has zero distributed code to mirror (SURVEY.md §2.3); these
-tests validate the TPU build's scale-out layer differentially against the
+tests validate the scale-out layer differentially against the
 single-device oracle: ring sequence-parallel attention and head-sharded TP
 must produce the same numbers as the unsharded fused kernel / SDPA oracle.
 """
